@@ -1,0 +1,18 @@
+"""patchwork_tpu_torch — Recursive Patchwork ground segmentation on PyTorch
+with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+
+The port of ``patchwork_tpu`` (JAX on a TPU), which stays beside it as the
+reference.  This package imports torch and numpy only.  Its main path is
+:func:`filter_ground_batched`: binning, the level loop, and the CUDA
+kernels of ``kernels/fit_cuda.py`` on a CUDA tensor (their plain PyTorch
+versions on a CPU tensor).
+"""
+
+from .api import RecursivePatchwork
+from .core.config import LidarConfig, PatchworkConfig, default_lidar_configs
+from .core.types import GroundResult
+from .segment.engine import filter_ground, filter_ground_batched
+
+__all__ = ["PatchworkConfig", "LidarConfig", "default_lidar_configs",
+           "GroundResult", "filter_ground", "filter_ground_batched",
+           "RecursivePatchwork"]
