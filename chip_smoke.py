@@ -7,16 +7,23 @@ Phases, one line each:
   1. card: torch's device name, and nvidia-smi's name and power limit;
   2. build: compile the kernels of patchwork_tpu_torch/csrc with nvcc;
   3. kernels: every kernel wrapper against its plain PyTorch version, on the
-     inputs the main path gives it (captured from a run of the slice);
+     inputs the main path gives it (captured from runs of the slice: the
+     level path, the "pallas" segment ops and the generic engine's fit);
   4. slice: filter_ground_batched on B=8 x 131072 velodyne-like scans and
      on B=8 x 131072 split-terrain scans (whose patches recurse), exact and
      fast mode, through the kernels: exact masks equal the plain path's bit
      for bit, fast IoU >= 0.999 vs exact, a second run gives the same masks,
-     sector ids agree with CPU binning, RecursivePatchwork on one scan, and
-     every kernel family was launched;
+     sector ids agree with CPU binning, RecursivePatchwork on one scan; then
+     the generic level engine: segment_impl="pallas" at B=8 x 131072, and
+     the default "fused" above the fit gate on 128-beam velodyne and split
+     terrain at B=8 x 153600 (fit_level at level 0, the loop of sweeps
+     deeper) and on 128-beam velodyne at B=8 x 262144 (the loop of sweeps
+     only), held to the plain path and to the level path forced on the same
+     scans; every kernel family was launched;
   5. quality: the five hard labeled scenes at 65536 points (seeds 0, 1),
      IoU within 0.001 of EVAL_r05.json in both modes;
-  6. timing: scans/s of the kernel path and the plain path (CUDA events).
+  6. timing: scans/s of the kernel path and the plain path (CUDA events),
+     and of the generic path beside the level path forced on the same scans.
 Then a JSON line per kernel family and, last, the device line.  Exits
 non-zero, and prints no result line, if there is no CUDA device, a build
 fails, or any phase fails.
@@ -31,6 +38,8 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 B, N = 8, 131072
+N_GEN = 153600      # a Hesai AT128 frame (128 x 1200): above the fit gate
+N_BIG = 262144      # an OS-128 frame at 2048 columns; the API's next bucket
 HARD_POINTS = 65536
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3   # float sums; the design adds in one order
 IOU_FAST_MIN = 0.999
@@ -119,6 +128,24 @@ class Capture:
             setattr(self.module, name, fn)
 
 
+def min_iou(a, b) -> float:
+    """Smallest per-scan IoU of two (B, N) bool masks."""
+    inter = (a & b).sum(1).double()
+    union = (a | b).sum(1).double().clamp(min=1)
+    return float((inter / union).min().item())
+
+
+def level_path(engine, fn, *args, **kwargs):
+    """Run ``fn`` with the fit gate open: filter_ground_batched then takes
+    the level path (``_fused_levels``) at any scan size."""
+    gate = engine._gate
+    engine._gate = lambda n, sp: True
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        engine._gate = gate
+
+
 def _time_ms(fn, args, kwargs, reps: int) -> float:
     """Mean CUDA-event time of fn over reps calls on fresh input clones."""
     import torch
@@ -149,7 +176,7 @@ def main() -> int:
     from patchwork_tpu_torch.core.device import card_info, cuda_device
     from patchwork_tpu_torch.io.synthetic import (
         HARD_SCENES, hard_labeled_scene, velodyne_like_cloud)
-    from patchwork_tpu_torch.kernels import _build, fit_cuda
+    from patchwork_tpu_torch.kernels import _build, fit_cuda, seg_cuda
     from patchwork_tpu_torch.segment import binning, engine
 
     fails = Failures()
@@ -171,10 +198,17 @@ def main() -> int:
         return xyz.to(dev), torch.ones(xyz.shape[:2], dtype=torch.bool,
                                        device=dev)
 
+    def velodyne128(n, seed):
+        return velodyne_like_cloud(n, seed=seed, num_beams=128)
+
     cfg_exact = PatchworkConfig()
     cfg_fast = PatchworkConfig(fast_covariance=True)
+    cfg_pallas = PatchworkConfig(segment_impl="pallas")
     velo = batch(velodyne_like_cloud, range(B))
     split = batch(split_terrain_cloud, range(B))
+    velo_gen = batch(velodyne128, range(B), N_GEN)
+    split_gen = batch(split_terrain_cloud, range(B), N_GEN)
+    velo_big = batch(velodyne128, range(B), N_BIG)
 
     # ---- 3. kernels vs plain versions, on the main path's inputs ----
     members = ["seg_order_stat", "seg_sum", "apply_sweep", "moments2_sweep",
@@ -182,8 +216,10 @@ def main() -> int:
                "node_stats", "early_outs", "deficient_round", "seed_init",
                "plane_table", "split_decision", "finish_nodes"]
     family_of = {m: "level" for m in members}
-    for f in ("seg_order_stat", "seg_sum", "apply_sweep", "moments2_sweep"):
+    for f in ("seg_order_stat", "seg_sum", "apply_sweep", "moments2_sweep",
+              "fit_level", "seg_gather", "seg_minmax"):
         family_of[f] = f
+    # (label, mode) -> (wrapper name, module, args, kwargs)
     captured = {}
     for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
         cap_k = Capture(fit_cuda, members, {"apply_sweep": 5,
@@ -196,21 +232,48 @@ def main() -> int:
             cap_k.restore()
             cap_l.restore()
         for name, v in cap_k.saved.items():
-            captured[(name, mode)] = v
-        captured[("level", mode)] = cap_l.saved["level"]
+            captured[(name, mode)] = (name, fit_cuda) + v
+        captured[("level", mode)] = ("level", engine) + cap_l.saved["level"]
+    # the generic engine: "pallas" segment ops at B x N, and the fit of
+    # "fused" above the gate at B x N_GEN (fit_level at level 0, the loop of
+    # sweeps at the deeper levels)
+    cap_s = Capture(seg_cuda, ["seg_gather", "seg_minmax"], {"seg_gather": 3})
+    try:
+        filter_ground_batched(*velo, cfg_pallas)
+    finally:
+        cap_s.restore()
+    for name, v in cap_s.saved.items():
+        captured[(name, "exact")] = (name, seg_cuda) + v
+    fit_inputs = {}    # level 0's _fused_fit_resid call, per mode
+    for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
+        cap_f = Capture(fit_cuda, ["fit_level", "apply_sweep",
+                                   "moments2_sweep"],
+                        {"apply_sweep": 3, "moments2_sweep": 3})
+        cap_e = Capture(engine, ["_fused_fit_resid"], {})
+        try:
+            filter_ground_batched(*split_gen, cfg)
+        finally:
+            cap_f.restore()
+            cap_e.restore()
+        fit_inputs[mode] = cap_e.saved["_fused_fit_resid"]
+        captured[("fit_level", mode)] = (("fit_level", fit_cuda)
+                                         + cap_f.saved["fit_level"])
+        for name in ("apply_sweep", "moments2_sweep"):
+            captured[(name + "/fit", mode)] = ((name, fit_cuda)
+                                               + cap_f.saved[name])
 
     exact_only = {"seg_order_stat", "remap_nodes", "remap_points",
                   "node_stats", "early_outs", "deficient_round",
-                  "finish_nodes"}
+                  "finish_nodes", "seg_gather", "seg_minmax"}
     err = {f: 0.0 for f in set(family_of.values())}
     ms = {f: 0.0 for f in err}
     plain_ms = {f: 0.0 for f in err}
-    for (name, mode), (args, kw) in sorted(captured.items()):
+    for (label, mode), (name, module, args, kw) in sorted(captured.items()):
         if name == "level":
             fn_k, fn_p = engine.level, engine.level_reference
         else:
-            fn_k = getattr(fit_cuda, name)
-            fn_p = getattr(fit_cuda.plain, name)
+            fn_k = getattr(module, name)
+            fn_p = getattr(module.plain, name)
         ak, ap = _clone(args), _clone(args)
         out_k, out_p = fn_k(*ak, **kw), fn_p(*ap, **kw)
         torch.cuda.synchronize()
@@ -238,22 +301,45 @@ def main() -> int:
             fine = all(torch.allclose(a, b, rtol=SUM_RTOL, atol=SUM_ATOL,
                                       equal_nan=True) if a.is_floating_point()
                        else torch.equal(a, b) for a, b in zip(tk, tp))
-            # the per-point outputs that are masks (state) must match exactly
+            # the per-point outputs that are masks (state; fit_level's g)
+            # must match exactly
             for a, b in zip(tk, tp):
-                if a.dim() == 3 and a.shape[1] == 4:
+                if a.dim() == 3 and (a.shape[1] == 4 or name == "fit_level"
+                                     and a.shape[1] == 1):
                     fine = fine and torch.equal(a, b)
         fam = family_of.get(name, "level")
         err[fam] = max(err[fam], e)
-        reps = 20 if name != "level" else 3
-        t_k = _time_ms(fn_k, args, kw, reps)
-        t_p = _time_ms(fn_p, args, kw, 2 if name == "level" else 3)
-        if name in ms and mode == "exact":   # the family's own entry point
-            ms[name], plain_ms[name] = t_k, t_p
-        print(f"[3 kernels] {name:15s} {mode:5s} max_abs_err {e:.3g} "
+        slow = name in ("level", "fit_level")
+        t_k = _time_ms(fn_k, args, kw, 3 if slow else 20)
+        t_p = _time_ms(fn_p, args, kw, 1 if name == "fit_level"
+                       else 2 if slow else 3)
+        if label in ms and mode == "exact":   # the family's own entry point
+            ms[label], plain_ms[label] = t_k, t_p
+        print(f"[3 kernels] {label:19s} {mode:5s} max_abs_err {e:.3g} "
               f"kernel {t_k:.3f} ms plain {t_p:.3f} ms "
               f"{'ok' if fine else 'MISMATCH'}", flush=True)
-        fails.check(fine, f"kernel {name} ({mode}) disagrees with its plain "
+        fails.check(fine, f"kernel {label} ({mode}) disagrees with its plain "
                           f"version (max_abs_err {e})")
+
+    # kernel 5 against the loop of sweeps it stands for, on the same level-0
+    # fit (the loop is exact two-pass in both modes; fit_level honours fast)
+    for mode, (args, kw) in sorted(fit_inputs.items()):
+        t_one = _time_ms(engine._fused_fit_resid, args, kw, 3)
+        g_one = engine._fused_fit_resid(*_clone(args), **kw)[0]
+        gate = fit_cuda.megakernel_fits
+        fit_cuda.megakernel_fits = lambda n, sp: False
+        try:
+            t_loop = _time_ms(engine._fused_fit_resid, args, kw, 3)
+            g_loop = engine._fused_fit_resid(*_clone(args), **kw)[0]
+        finally:
+            fit_cuda.megakernel_fits = gate
+        d = int((g_one != g_loop).sum().item())
+        print(f"[3 kernels] level-0 fit B={B} N={N_GEN} {mode}: fit_level "
+              f"{t_one:.3f} ms, loop of sweeps {t_loop:.3f} ms; differing "
+              f"mask bits {d}", flush=True)
+        if mode == "exact":
+            fails.check(d == 0, f"fit_level and the loop of sweeps differ "
+                                f"by {d} mask bits")
 
     # ---- 4. the slice through the kernels ----
     fit_cuda.reset_launches()
@@ -267,7 +353,40 @@ def main() -> int:
                         f"{scene} {mode}: two kernel runs differ")
     res_api = RecursivePatchwork(cfg_exact, device=dev).filter_ground_points(
         velo[0][0].cpu().numpy())
-    launches = dict(fit_cuda.LAUNCHES)
+    launches_level = dict(fit_cuda.LAUNCHES)
+
+    # the generic level engine, its counts read on their own; the level path
+    # (engine.level) must not run, though the loop of sweeps launches the
+    # level family's plane table
+    def counted(data, cfg):
+        before = dict(fit_cuda.LAUNCHES)
+        cap = Capture(engine, ["level"], {})
+        try:
+            g = filter_ground_batched(*data, cfg).ground
+        finally:
+            cap.restore()
+        d = {k: fit_cuda.LAUNCHES[k] - v for k, v in before.items()}
+        d["level path"] = cap.calls.get("level", 0)
+        return g, d
+
+    fit_cuda.reset_launches()
+    gen = {}
+    gen["pallas"], d = counted(velo, cfg_pallas)
+    fails.check(d["level path"] == 0 and d["seg_gather"] > 0
+                and d["seg_minmax"] > 0, f"pallas: not the generic path {d}")
+    for scene, data in (("velodyne128", velo_gen), ("split", split_gen)):
+        for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
+            gen[(scene, mode)], d = counted(data, cfg)
+            fails.check(d["level path"] == 0 and d["fit_level"] > 0,
+                        f"{scene} {mode} N={N_GEN}: not the generic path "
+                        f"with fit_level {d}")
+    gen["big"], d = counted(velo_big, cfg_exact)
+    fails.check(d["level path"] == 0 and d["fit_level"] == 0
+                and d["apply_sweep"] > 0,
+                f"velodyne128 N={N_BIG}: not the loop of sweeps {d}")
+    launches_gen = dict(fit_cuda.LAUNCHES)
+    launches = {k: launches_level[k] + launches_gen[k] for k in launches_gen}
+
     n_api = len(res_api[0])
     n_batch = int(masks[("velodyne", "exact")][0].sum().item())
     fails.check(n_api == n_batch,
@@ -300,10 +419,58 @@ def main() -> int:
               f"binning: {flips}", flush=True)
     print(f"[4 slice] RecursivePatchwork.filter_ground_points: {n_api} ground,"
           f" {len(res_api[1])} non-ground of {N}", flush=True)
-    print(f"[4 slice] main-path launches {launches}", flush=True)
+    print(f"[4 slice] main-path launches, level path {launches_level}",
+          flush=True)
     for fam in ("seg_order_stat", "apply_sweep", "moments2_sweep", "level",
                 "seg_sum"):
-        fails.check(launches[fam] > 0, f"kernel family {fam} never launched")
+        fails.check(launches_level[fam] > 0,
+                    f"kernel family {fam} never launched on the level path")
+
+    # generic engine against the plain path and the level path forced
+    diff = int((filter_ground_batched(*velo, cfg_pallas, plain=True).ground
+                != gen["pallas"]).sum().item())
+    same = torch.equal(gen["pallas"], masks[("velodyne", "exact")])
+    print(f"[4 generic] pallas velodyne B={B} N={N} exact: kernel vs plain "
+          f"differing mask bits {diff}; equal to the level path: {same}",
+          flush=True)
+    fails.check(diff == 0 and same, "pallas velodyne: masks differ")
+    for scene, data in (("velodyne128", velo_gen), ("split", split_gen)):
+        for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
+            g = gen[(scene, mode)]
+            gp = filter_ground_batched(*data, cfg, plain=True).ground
+            gl = level_path(engine, filter_ground_batched, *data, cfg).ground
+            d_plain = int((gp != g).sum().item())
+            d_level = int((gl != g).sum().item())
+            iou = min_iou(g, gl)
+            print(f"[4 generic] {scene} B={B} N={N_GEN} {mode}: kernel vs "
+                  f"plain differing mask bits {d_plain}; vs the level path "
+                  f"{d_level} of {g.numel()} (min IoU {iou:.6f})", flush=True)
+            if mode == "exact":
+                fails.check(d_plain == 0, f"{scene} N={N_GEN} exact: "
+                                          f"{d_plain} bits differ from plain")
+                if scene == "velodyne128":
+                    fails.check(d_level == 0, f"{scene} N={N_GEN} exact: "
+                                f"{d_level} bits differ from the level path")
+                else:   # the 3-point-seed exception of PARITY.md
+                    fails.check(iou >= IOU_FAST_MIN, f"{scene} N={N_GEN}: "
+                                f"IoU {iou} vs the level path < 0.999")
+        iou = min_iou(gen[(scene, "exact")], gen[(scene, "fast")])
+        print(f"[4 generic] {scene} N={N_GEN}: fast vs exact min IoU "
+              f"{iou:.6f}", flush=True)
+        if scene == "velodyne128":
+            fails.check(iou >= IOU_FAST_MIN, f"{scene} N={N_GEN}: fast IoU "
+                                             f"{iou} < 0.999")
+    diff = int((filter_ground_batched(*velo_big, cfg_exact, plain=True).ground
+                != gen["big"]).sum().item())
+    print(f"[4 generic] velodyne128 B={B} N={N_BIG} exact: kernel vs plain "
+          f"differing mask bits {diff}", flush=True)
+    fails.check(diff == 0, f"velodyne128 N={N_BIG}: {diff} bits differ")
+    print(f"[4 generic] main-path launches, generic path {launches_gen}",
+          flush=True)
+    for fam in ("seg_sum", "seg_gather", "seg_minmax", "fit_level",
+                "apply_sweep", "moments2_sweep"):
+        fails.check(launches_gen[fam] > 0,
+                    f"kernel family {fam} never launched on the generic path")
 
     # ---- 5. quality on the hard labeled scenes ----
     with open(os.path.join(ROOT, "EVAL_r05.json")) as f:
@@ -345,6 +512,14 @@ def main() -> int:
         print(f"[6 timing] velodyne B={B} N={N} {mode}: kernel path "
               f"{rk:.1f} scans/s, plain path {rp:.2f} scans/s on {card}",
               flush=True)
+    for n, data, mode, cfg in ((N_GEN, velo_gen, "exact", cfg_exact),
+                               (N_GEN, velo_gen, "fast", cfg_fast),
+                               (N_BIG, velo_big, "exact", cfg_exact)):
+        rg = scans_per_s(*data, cfg, False, 3)
+        rl = level_path(engine, scans_per_s, *data, cfg, False, 3)
+        print(f"[6 timing] velodyne128 B={B} N={n} {mode}: generic path "
+              f"{rg:.1f} scans/s, level path forced {rl:.1f} scans/s on "
+              f"{card}", flush=True)
 
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed",
@@ -360,6 +535,9 @@ def main() -> int:
          "patchwork_tpu/kernels/fit_pallas.py:220"),
         ("level", "level.cu", "patchwork_tpu/kernels/fit_pallas.py:1465"),
         ("seg_sum", "sweeps.cu", "patchwork_tpu/kernels/seg_pallas.py:74"),
+        ("fit_level", "fitloop.cu", "patchwork_tpu/kernels/fit_pallas.py:525"),
+        ("seg_gather", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:112"),
+        ("seg_minmax", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:165"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,

@@ -4,6 +4,9 @@ Counterpart of ``patchwork_tpu/api.py:74-151``: ``RecursivePatchwork`` with
 ``set_config``/``get_config``, ``clean_points``, ``segment`` and
 ``filter_ground_points``.  Point clouds are padded to power-of-two
 capacities (``api.py:31-35``), so scans of any size reuse a few shapes.
+Under the default ``segment_impl="fused"``, capacities above the fit gate
+(``fit_cuda.megakernel_fits``: any cloud of 131,073 points or more, whose
+bucket is 262,144) take the generic level engine, as in the JAX package.
 """
 
 from __future__ import annotations

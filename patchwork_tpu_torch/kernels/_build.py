@@ -1,8 +1,10 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 The sources are ``patchwork_tpu_torch/csrc/*.cu``: plain C entry points
-(no PyTorch headers), compiled by ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/`` at the repository root (listed in .gitignore).
+(no PyTorch headers).  ``nvcc`` compiles each source for ``sm_90a`` into an
+object file, one process per source, all started together, and then links
+them into one shared library under ``build/`` at the repository root
+(listed in .gitignore).
 Each C entry point takes raw device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()``.
 
@@ -30,7 +32,7 @@ _lib = None
 _build_seconds = None
 
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +58,9 @@ _SIGNATURES = {
     "pw_plane_table": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_split_decision": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "pw_finish_nodes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pw_seg_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pw_seg_minmax": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pw_fit_level": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 
@@ -68,6 +73,35 @@ def _nvcc() -> str:
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return nvcc
+
+
+def _compile(so: pathlib.Path, cu: list) -> None:
+    """nvcc -c every source in parallel, then link them into ``so``."""
+    nvcc = _nvcc()
+    tmp = _BUILD / f"{so.stem}.{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs = [tmp / f"{p.stem}.o" for p in cu]
+    cmds = [[nvcc, *_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [pr.communicate()[0] for pr in procs]
+    link = [nvcc, "-shared", "-o", str(tmp / so.name), *map(str, objs)]
+    log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+    failed = [(c[-1], pr.returncode, o) for c, pr, o in zip(cmds, procs, outs)
+              if pr.returncode != 0]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(("link", res.returncode, res.stderr))
+    (_BUILD / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        src, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed on {src} ({rc}):\n{out[-4000:]}")
+    os.replace(tmp / so.name, so)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def load() -> ctypes.CDLL:
@@ -85,16 +119,7 @@ def load() -> ctypes.CDLL:
     so = _BUILD / f"libpatchwork_kernels_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
     if not so.exists():
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = _BUILD / "nvcc.log"
-        log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-        os.replace(tmp, so)
+        _compile(so, [p for p in srcs if p.suffix == ".cu"])
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -12,10 +12,12 @@ family             replaces (patchwork_tpu/kernels/...)
 ``apply_sweep``    fit_pallas.py ``fused_apply`` / ``_apply_kernel``
 ``moments2_sweep`` fit_pallas.py ``fused_moments2`` / ``_moments2_kernel``
 ``level``          fit_pallas.py ``level_megakernel`` / ``_level_kernel``
+``fit_level``      fit_pallas.py ``fit_level_megakernel`` / ``_mega_kernel``
 =================  ==================================================
 
 plus ``seg_sum`` (seg_pallas.py ``seg_sum_pallas``), the fixed-order
-segment sum that binning and the remap prologue use.
+segment sum that binning and the remap prologue use.  The other two
+seg_pallas.py kernels are in :mod:`.seg_cuda`.
 
 The TPU kernels keep the whole cloud in VMEM and turn every segment op
 into a one-hot matmul on the MXU.  None of that carries over: here the
@@ -46,7 +48,8 @@ __all__ = [
     "seg_order_stat", "seg_sum", "apply_sweep", "moments2_sweep",
     "remap_r1", "remap_r1b", "remap_nodes", "remap_points", "node_stats",
     "early_outs", "deficient_round", "seed_init", "plane_table",
-    "split_decision", "finish_nodes",
+    "split_decision", "finish_nodes", "fit_pack", "megakernel_fits",
+    "fit_level",
 ]
 
 TILE = 256           # points per partial sum (one CUDA block per tile)
@@ -57,7 +60,8 @@ _HIST_SMEM_LIMIT = 200 * 1024    # bytes of one order-stat block's histogram
 
 
 LAUNCHES = {"seg_order_stat": 0, "apply_sweep": 0, "moments2_sweep": 0,
-            "level": 0, "seg_sum": 0}
+            "level": 0, "seg_sum": 0, "fit_level": 0, "seg_gather": 0,
+            "seg_minmax": 0}
 
 
 def reset_launches() -> None:
@@ -478,20 +482,16 @@ def remap_points(pts: torch.Tensor, state: torch.Tensor, pnode: torch.Tensor,
 
 
 def node_stats_plain(pts, state, zth, trash, sp):
-    b, _, n = pts.shape
     seg, act = _live(state, trash)
     live = act > 0.5
-    ops = SegOps(flatten_batch(seg, sp), b * sp)
-    cnt = ops.count(live.reshape(-1)).to(torch.float32).reshape(b, sp)
+    ops = SegOps(seg, sp)
+    cnt = ops.count(live).to(torch.float32)
     if zth is None:
         seed = torch.zeros_like(cnt)
     else:
         seedm = live & (pts[:, 2] < torch.gather(zth, 1, seg))
-        seed = ops.count(seedm.reshape(-1)).to(torch.float32).reshape(b, sp)
-    xyz = pts[:, 0:3].permute(0, 2, 1).reshape(-1, 3)
-    mins, maxs = ops.bbox(xyz, live.reshape(-1))
-    mins = mins.reshape(3, b, sp).permute(1, 0, 2)
-    maxs = maxs.reshape(3, b, sp).permute(1, 0, 2)
+        seed = ops.count(seedm).to(torch.float32)
+    mins, maxs = ops.bbox(pts[:, 0:3], live)
     return torch.cat([cnt[:, None], seed[:, None], mins, maxs], 1)
 
 
@@ -515,24 +515,30 @@ def node_stats(pts: torch.Tensor, state: torch.Tensor, zth: torch.Tensor | None,
     return out
 
 
-def early_outs_plain(nstats, tables, zth, is_level0, flat_area, flat_dz,
-                     flat_minpts, min_seed):
-    cnt, seed = nstats[:, 0], nstats[:, 1]
-    xmin, ymin, zmin = nstats[:, 2], nstats[:, 3], nstats[:, 4]
-    xmax, ymax, zmax = nstats[:, 5], nstats[:, 6], nstats[:, 7]
-    real = tables[:, 2] > 0.5
+def early_out_masks(cnt, seed, mins, maxs, real, is_level0, flat_area,
+                    flat_dz, flat_minpts, min_seed):
+    """Early-outs in the reference's order (cpp:111-140), per node: from the
+    counts (B, S), bbox (B, 3, S) each and the real-node mask, the bool
+    masks (finished, label, fit, deficient)."""
     too_small = cnt < 3.0
-    area = (xmax - xmin) * (ymax - ymin)
+    area = (maxs[:, 0] - mins[:, 0]) * (maxs[:, 1] - mins[:, 1])
     if is_level0:
         flat_a = torch.zeros_like(too_small)
     else:
         flat_a = (area < flat_area) & ~too_small
-    flat_z = ((zmax - zmin) < flat_dz) & (cnt > float(flat_minpts))
-    flat_z = flat_z & ~too_small & ~flat_a
+    flat_z = (maxs[:, 2] - mins[:, 2]) < flat_dz
+    flat_z = flat_z & (cnt > float(flat_minpts)) & ~too_small & ~flat_a
     finished = real & (too_small | flat_a | flat_z)
-    label = flat_a | flat_z
     fit = real & ~finished
-    deficient = fit & (seed < float(min_seed))
+    return finished, flat_a | flat_z, fit, fit & (seed < float(min_seed))
+
+
+def early_outs_plain(nstats, tables, zth, is_level0, flat_area, flat_dz,
+                     flat_minpts, min_seed):
+    finished, label, fit, deficient = early_out_masks(
+        nstats[:, 0], nstats[:, 1], nstats[:, 2:5], nstats[:, 5:8],
+        tables[:, 2] > 0.5, is_level0, flat_area, flat_dz, flat_minpts,
+        min_seed)
     flags = torch.stack([finished.float(), label.float(), fit.float(),
                          deficient.float(), zth], 1)
     return flags, deficient.any(dim=1).to(torch.int32)
@@ -558,20 +564,18 @@ def early_outs(nstats: torch.Tensor, tables: torch.Tensor, zth: torch.Tensor,
 
 
 def deficient_round_plain(pts, state, flags, any_def, trash):
-    b, _, n = pts.shape
     sp = flags.shape[2]
     z, idx = pts[:, 2], pts[:, 6]
     seg, act = _live(state, trash)
     def_pt = torch.gather(flags[:, 3], 1, seg) > 0.5
     chosen = state[:, 2]
     cand = (act > 0.5) & def_pt & (chosen < 0.5)
-    ops = SegOps(flatten_batch(seg, sp), b * sp)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=pts.device)
-    m = ops.min(z.reshape(-1), cand.reshape(-1))
-    m_pt = ops.gather(torch.where(torch.isfinite(m), m, big)).reshape(b, n)
+    ops = SegOps(seg, sp)
+    m = ops.min(z, cand)
+    m_pt = ops.gather(torch.where(torch.isfinite(m), m, _BIG))
     is_min = cand & (z == m_pt)
-    mi = ops.min(idx.reshape(-1), is_min.reshape(-1))
-    mi_pt = ops.gather(torch.where(torch.isfinite(mi), mi, big)).reshape(b, n)
+    mi = ops.min(idx, is_min)
+    mi_pt = ops.gather(torch.where(torch.isfinite(mi), mi, _BIG))
     pick = is_min & (idx == mi_pt)
     state[:, 2] = torch.maximum(chosen, pick.to(torch.float32))
 
@@ -784,6 +788,119 @@ def finish_nodes(state: torch.Tensor, flags: torch.Tensor, sd: torch.Tensor,
             flags.shape[2], trash)
 
 
+# ---------------------------------------------------------------------------
+# fit_level  (fit_pallas.py:523-560 fit_level_megakernel -> _mega_kernel):
+# one level's whole fit loop in one launch, for the generic level engine
+# ---------------------------------------------------------------------------
+
+def fit_pack(xyz: torch.Tensor, tau_pt: torch.Tensor, amask: torch.Tensor,
+             seg: torch.Tensor) -> torch.Tensor:
+    """The fit layout (fit_pallas.py:70-86): xyz (B, 3, N), tau (B, N),
+    apply-mask (B, N) bool, seg (B, N) -> (B, 8, N) rows [x, y, z, tau,
+    amask, seg (exact as f32), 0, 0]."""
+    rows = [tau_pt.to(torch.float32), amask.to(torch.float32),
+            seg.to(torch.float32)]
+    zero = torch.zeros_like(rows[0])
+    return torch.cat([xyz.to(torch.float32),
+                      torch.stack(rows + [zero, zero], 1)], 1).contiguous()
+
+
+def megakernel_fits(n_padded: int, sp: int) -> bool:
+    """The JAX package's VMEM gate (fit_pallas.py:516-520), carried over
+    verbatim: it is the port's path choice, so the port takes the JAX
+    package's path at every N and the two can be held against each other
+    path by path.  In exact mode it changes no result (every path adds in
+    the sweeps' order); fast mode is honoured only by the level path and
+    :func:`fit_level`."""
+    point_bytes = (8 + 3) * 4 * n_padded          # packed rows + in/out masks
+    onehot_bytes = 2 * sp * 4096 * 2              # (Sp, T) bf16, double-ish
+    return point_bytes + onehot_bytes + 64 * sp * 4 < 10 * 1024 * 1024
+
+
+def _fit_sweep_plain(p, g, tab, sp, fast):
+    x, y, z, tau, am = p[:, 0], p[:, 1], p[:, 2], p[:, 3], p[:, 4]
+    seg = p[:, 5].to(torch.int64)
+    gat = _gather_rows(tab, seg)
+    dx, dy, dz = x - gat[:, 0], y - gat[:, 1], z - gat[:, 2]
+    dist = torch.abs(dx * gat[:, 3] + dy * gat[:, 4] + dz * gat[:, 5])
+    apply_m = am * gat[:, 6]
+    new_g = (dist < tau).to(torch.float32)
+    g2 = apply_m * new_g + (1.0 - apply_m) * g
+    xg, yg, zg = x * g2, y * g2, z * g2
+    rows = [g2, xg, yg, zg, dist * g, apply_m * torch.abs(new_g - g)]
+    if fast:
+        rows += [x * xg, y * xg, z * xg, y * yg, z * yg, z * zg]
+    return g2, _tile_sums(torch.stack(rows, 1), seg, sp)
+
+
+def _fit_table_plain(p, g, m1, sp, fast, with_can):
+    gcnt = m1[:, 0]
+    c = m1[:, 1:4] / torch.clamp(gcnt[:, None], min=1.0)
+    if fast:
+        m2 = _centered_m2(m1)
+    else:
+        cg = _gather_rows(c, p[:, 5].to(torch.int64))
+        dx = (p[:, 0] - cg[:, 0]) * g
+        dy = (p[:, 1] - cg[:, 1]) * g
+        dz = (p[:, 2] - cg[:, 2]) * g
+        m2 = _tile_sums(torch.stack([dx * dx, dx * dy, dx * dz, dy * dy,
+                                     dy * dz, dz * dz], 1),
+                        p[:, 5].to(torch.int64), sp)
+    vx, vy, vz = _normal_rows(m2, gcnt)
+    can = ((gcnt >= 3.0) & with_can).to(torch.float32)
+    return torch.stack([c[:, 0], c[:, 1], c[:, 2], vx, vy, vz, can], 1)
+
+
+def fit_level_plain(p, g0, num_segs, max_iter, fast):
+    b, _, n = p.shape
+    sp = sp_width(num_segs)
+    g, m1 = _fit_sweep_plain(p, g0[:, 0], p.new_zeros(b, 7, sp), sp, fast)
+    changed = True
+    for _ in range(max_iter):
+        g, m1 = _fit_sweep_plain(p, g, _fit_table_plain(p, g, m1, sp, fast,
+                                                        True), sp, fast)
+        changed = bool((m1[:, 5] > 0.0).any())
+        if not changed:
+            break
+    if changed:
+        g, m1 = _fit_sweep_plain(p, g, _fit_table_plain(p, g, m1, sp, fast,
+                                                        False), sp, fast)
+    return g[:, None], torch.cat([m1[:, :6], p.new_zeros(b, 2, sp)], 1)
+
+
+def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
+              max_iter: int, fast: bool = False):
+    """One level's complete fit loop (``_mega_kernel``) in one launch.
+
+    p (B, 8, N) fit layout (:func:`fit_pack`), N a multiple of TILE; g0
+    (B, 1, N) seeded 0/1 mask.  Returns (g (B, 1, N) converged mask,
+    stats (B, 8, Sp) rows [cnt, sx, sy, sz, distsum (old mask), changed, 0,
+    0] of the final fit).  ``fast`` accumulates raw second moments in the
+    apply sweep (one sweep per iteration; expects patch-center-shifted
+    coordinates).
+
+    CUDA: one block per scan loops on the device until its mask stops
+    changing or max_iter, so each scan converges on its own and the level's
+    fit is one launch.  Per-node sums, moments and plane table live in
+    shared memory; sums keep the sweeps' order, so the kernel equals its
+    plain version (and the level path's fit) bit for bit.  Bound by one
+    block per scan: at small B most SMs idle.
+    """
+    if not _on_card(p, g0):
+        return fit_level_plain(p, g0, num_segs, max_iter, fast)
+    _check_points(p)
+    _f32(g0)
+    b, _, n = p.shape
+    if g0.shape != (b, 1, n):
+        raise ValueError(f"g0 must be ({b}, 1, {n}), got {tuple(g0.shape)}")
+    sp = sp_width(num_segs)
+    g = torch.empty_like(g0)
+    stats = torch.empty((b, 8, sp), dtype=torch.float32, device=p.device)
+    _launch("fit_level", "pw_fit_level", p, g0, g, stats, b, n, sp,
+            int(max_iter), int(fast))
+    return g, stats
+
+
 # The plain versions under the wrappers' names: what the engine calls to
 # run the level with no kernel on any device.
 plain = types.SimpleNamespace(
@@ -794,5 +911,5 @@ plain = types.SimpleNamespace(
     node_stats=node_stats_plain, early_outs=early_outs_plain,
     deficient_round=deficient_round_plain, seed_init=seed_init_plain,
     plane_table=plane_table_plain, split_decision=split_decision_plain,
-    finish_nodes=finish_nodes_plain,
+    finish_nodes=finish_nodes_plain, fit_level=fit_level_plain,
 )

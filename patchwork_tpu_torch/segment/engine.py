@@ -1,19 +1,30 @@
-"""The Recursive Patchwork engine on PyTorch, driven level by level.
+"""The Recursive Patchwork engine on PyTorch.
 
-Port of the main path of ``patchwork_tpu/segment/engine.py``: binning, the
-fast-mode patch-center shift (engine.py:579-604) and ``_fused_levels``
-(engine.py:207-315), with its ``pack``/``tables`` row contracts and its
-level loop.  Each level runs :func:`level`, the port of the TPU's
-``level_megakernel`` (kernels/fit_pallas.py:1465-1558): a short sequence
-of CUDA kernels driven from Python on a CUDA tensor, or the same sequence
-of their plain versions (:func:`level_reference`) on a CPU tensor.
+Port of ``patchwork_tpu/segment/engine.py``: binning, the fast-mode
+patch-center shift (engine.py:579-604) and two level engines, chosen as the
+JAX package chooses them (engine.py:568-625):
+
+* the level path, ``_fused_levels`` (engine.py:207-315), with its
+  ``pack``/``tables`` row contracts and its level loop.  Each level runs
+  :func:`level`, the port of the TPU's ``level_megakernel``
+  (kernels/fit_pallas.py:1465-1558): a short sequence of CUDA kernels driven
+  from Python on a CUDA tensor, or the same sequence of their plain versions
+  (:func:`level_reference`) on a CPU tensor.  ``segment_impl="fused"`` (the
+  default) takes it while the fit gate admits the scan;
+* the generic path, ``_level_body`` / ``_child_remap`` and the generic
+  branch of ``filter_ground`` (engine.py:318-664), built on segment ops
+  (segops.SegOps).  ``"scatter"``, ``"onehot"`` and ``"pallas"`` take it,
+  and so does ``"fused"`` above the gate, whose fit then runs as one
+  ``fit_level`` launch or as a loop of the level path's sweeps
+  (``_fused_fit_resid``).
 
 The batch is a real dimension: every kernel's grid carries the scan.  Each
-scan converges on its own: the fit loop shares one iteration counter and
-stops when no scan changed, and a converged scan re-fits idempotently
-(same mask -> same plane -> same mask, bit for bit), so every scan gets
-exactly its solo result.  The host reads one flag per fit iteration and
-one per level.
+scan converges on its own: the loops that JAX runs under ``vmap`` share one
+counter and stop when no scan changed, which is correct because a converged
+scan re-fits idempotently (same mask -> same plane -> same mask, bit for
+bit) and a scan with no split passes a deeper level unchanged, so every
+scan gets exactly its solo result.  The host reads one flag per fit
+iteration and one per level.
 """
 
 from __future__ import annotations
@@ -28,11 +39,13 @@ from ..core.types import GroundResult
 from ..kernels import fit_cuda
 from ..kernels.fit_cuda import TILE, sp_width
 from .binning import assign_patches
+from .segops import IMPLS, SegOps, default_impl, flatten_batch, sort_by_segment
 
 __all__ = ["level", "level_reference", "filter_ground",
            "filter_ground_batched"]
 
 _F32 = np.float32
+_BIG = 3.0e38   # finite sentinel of the deficient loop (engine.py:420)
 
 
 def _f32(v) -> float:
@@ -109,28 +122,42 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
         k.deficient_round(pts, state, flags, any_def, trash)
 
     # ---- phase 4+5: seed init fused with the first sweep; fit loop ------
-    fit_row = flags[:, 2].contiguous()
-
-    def make_tab(m1, with_can):
-        c = (m1[:, 1:4] / torch.clamp(m1[:, 0:1], min=1.0)).contiguous()
-        m2 = None if fast else k.moments2_sweep(pts, state, c, trash)
-        return k.plane_table(m1.contiguous(), c, m2,
-                             fit_row if with_can else None, tau_row, fast)
-
-    m1 = k.seed_init(pts, state, flags, trash, fast)
-    for _ in range(max_iter):
-        m1 = k.apply_sweep(pts, state, make_tab(m1, True), trash, fast)
-        if not bool((m1[:, 5] > 0.0).any()):
-            break
-
     # ---- phase 6: final fit, residual, split; 7: finish non-split -------
-    sf = k.apply_sweep(pts, state, make_tab(m1, False), trash, fast)
+    m1 = k.seed_init(pts, state, flags, trash, fast)
+    sf = _fit_loop(k, pts, state, m1, flags[:, 2].contiguous(), tau_row,
+                   trash, max_iter, fast)
     sd = k.split_decision(sf, nstats, flags, tables)
     k.finish_nodes(state, flags, sd, trash)
     stats = torch.stack([sd[:, 0], sd[:, 1], sd[:, 2], nstats[:, 0],
                          nstats[:, 1], tau_row, zth_row,
                          torch.zeros_like(tau_row)], 1)
     return state, stats
+
+
+def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
+    """The fit while-loop of a level (fit_pallas.py:1357-1425) on the sweeps
+    of ``k`` (the kernels or their plain versions): from the sums ``m1`` of
+    the seeded mask, plane table then apply sweep until no scan changed or
+    max_iter, then the final can = 0 sweep whose sums give the residual.
+    That sweep runs only on a max_iter exit: after a convergence exit the
+    mask equals the last sweep's input, so its sums are bitwise those of
+    the last sweep.  ``state`` row 0 (the mask) is updated in place; returns
+    the final sums."""
+    def make_tab(m1, with_can):
+        c = (m1[:, 1:4] / torch.clamp(m1[:, 0:1], min=1.0)).contiguous()
+        m2 = None if fast else k.moments2_sweep(pts, state, c, trash)
+        return k.plane_table(m1.contiguous(), c, m2,
+                             fit_row if with_can else None, tau_row, fast)
+
+    changed = True
+    for _ in range(max_iter):
+        m1 = k.apply_sweep(pts, state, make_tab(m1, True), trash, fast)
+        changed = bool((m1[:, 5] > 0.0).any())
+        if not changed:
+            break
+    if changed:
+        m1 = k.apply_sweep(pts, state, make_tab(m1, False), trash, fast)
+    return m1
 
 
 def level(pts: torch.Tensor, tables: torch.Tensor, num_segs: int,
@@ -258,6 +285,293 @@ def _shift_to_patch_centers(cfg, xyz, pa):
     return xyz - shift
 
 
+# ---------------------------------------------------------------------------
+# the generic level engine (engine.py:65-204, 318-556, 627-664)
+# ---------------------------------------------------------------------------
+
+def _gate(n: int, sp: int) -> bool:
+    """``megakernel_fits`` on the point count padded as the JAX package
+    pads it (to 128), so both packages take the same path at every N."""
+    return fit_cuda.megakernel_fits(n + (-n) % 128, sp)
+
+
+def _cov_normal(m2: torch.Tensor, gcnt: torch.Tensor) -> torch.Tensor:
+    """(B, 6, S) centered second-moment sums -> (B, 3, S) plane normals
+    flipped to +Z (engine.py:65-82): the eigensolve of ops.geometry in the
+    row form the kernels' plane table computes, so every path gets the same
+    bits from the same sums."""
+    return torch.stack(fit_cuda._normal_rows(m2, gcnt), 1)
+
+
+def _fit_step(ops: SegOps, xyz: torch.Tensor, gmask: torch.Tensor):
+    """One batched masked PCA fit (engine.py:85-108): xyz (B, 3, N), gmask
+    (B, N) -> (gcnt (B, S), dist (B, N)), each point's distance to its own
+    segment's plane.  Two segment passes, sums then centered products."""
+    g = gmask.to(torch.float32)
+    m1 = ops.sum(torch.cat([g[:, None], xyz * g[:, None]], 1))
+    gcnt = m1[:, 0]
+    d_all = xyz - ops.gather(m1[:, 1:4] / torch.clamp(gcnt[:, None], min=1.0))
+    d = d_all * g[:, None]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    m2 = ops.sum(torch.stack([dx * dx, dx * dy, dx * dz, dy * dy, dy * dz,
+                              dz * dz], 1))
+    n_pt = ops.gather(_cov_normal(m2, gcnt))
+    # the sweeps' expression, so every path computes the same bits
+    dist = torch.abs(d_all[:, 0] * n_pt[:, 0] + d_all[:, 1] * n_pt[:, 1]
+                     + d_all[:, 2] * n_pt[:, 2])
+    return gcnt, dist
+
+
+def _pad_sp(v: torch.Tensor, sp: int) -> torch.Tensor:
+    return torch.nn.functional.pad(v, (0, sp - v.shape[1])).contiguous()
+
+
+def _fused_fit_resid(cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
+                     fit_node, num_segs, plain):
+    """The fit loop and final residual of one level under ``"fused"``
+    (engine.py:111-204): one :func:`fit_cuda.fit_level` launch where the gate
+    admits the level, else a loop of the level path's sweeps.
+
+    The fallback maps the fit layout onto the level sweeps' rows: points
+    outside the apply-mask park on the trash id (so ``live`` is the
+    apply-mask) and the table carries can = fit_node * (gcnt >= 3) and tau
+    per node.  The sums of fitted nodes are those of the fit layout; other
+    nodes' sums are not read.  The fallback is exact two-pass in both modes,
+    as in the JAX package; only ``fit_level`` honours fast mode.
+
+    Returns (ground (B, N) bool, gcnt (B, S), resid (B, S) with +inf below
+    3 ground points).
+    """
+    k = fit_cuda.plain if plain else fit_cuda
+    b, _, n = xyz.shape
+    sp = sp_width(num_segs)
+    trash = num_segs - 1
+    amask = active & fit_pt
+    n_pad = (-n) % TILE
+
+    def pad(v, value=0.0):
+        return torch.nn.functional.pad(v, (0, n_pad), value=value)
+
+    p = pad(fit_cuda.fit_pack(xyz, tau_pt, amask, seg)).contiguous()
+    g0 = pad(ground.to(torch.float32))
+    if _gate(n, sp):
+        g, sf = k.fit_level(p, g0[:, None].contiguous(), num_segs,
+                            cfg.max_iter, fast=cfg.fast_covariance)
+        g = g[:, 0]
+    else:
+        seg_fit = pad(torch.where(amask, seg, trash).to(torch.float32),
+                      float(trash))
+        zero = torch.zeros_like(g0)
+        state = torch.stack([g0, zero, zero, seg_fit], 1)
+        m1 = k.apply_sweep(p, state, p.new_zeros(b, 8, sp), trash, False)
+        sf = _fit_loop(k, p, state, m1, _pad_sp(fit_node.to(torch.float32),
+                                                sp),
+                       _pad_sp(tau_node, sp), trash, cfg.max_iter, False)
+        g = state[:, 0]
+    gcnt = sf[:, 0, :num_segs]
+    resid = sf[:, 4, :num_segs] / torch.clamp(gcnt, min=1.0)
+    resid = torch.where(gcnt >= 3.0, resid, torch.full_like(resid, math.inf))
+    return g[:, :n] > 0.5, gcnt, resid
+
+
+def _ops_impl(impl: str) -> str:
+    # "fused" takes the kernel segment ops: the Hopper counterpart of the
+    # TPU's "onehot" choice at engine.py:341 / :510
+    return "pallas" if impl == "fused" else impl
+
+
+def _level_body(cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, num_segs,
+                is_level0, node, node_patch, done, ground, plain):
+    """Stats -> early-outs -> seeds -> iterative fit -> split flags for one
+    level of every active node (engine.py:318-490); split execution is
+    :func:`_child_remap`.  xyz (B, 3, N); node (B, N) int64; node_patch
+    (B, S) or None at level 0.  Returns (done, ground, split (B, S) bool).
+    """
+    b, _, n = xyz.shape
+    z = xyz[:, 2]
+    dev = xyz.device
+    trash = num_segs - 1
+    if is_level0:
+        node_patch = torch.arange(num_segs, device=dev).expand(b, -1)
+    tau_node = torch.gather(tau_patch, 1, node_patch)
+    zth_node = torch.gather(zth_patch, 1, node_patch)
+
+    active = pa.in_patch & ~done
+    seg = torch.where(active, node, trash)
+    ops = SegOps(seg, num_segs, _ops_impl(impl), plain=plain)
+    real = torch.arange(num_segs, device=dev) < trash
+
+    # ---- stats + seed candidates ----
+    if cfg.adaptive_seed_height:
+        tg = ops.gather(torch.stack([zth_node, tau_node], 1))
+        zth_pt, tau_pt = tg[:, 0], tg[:, 1]
+        seed = active & (z < zth_pt)
+        cnts = ops.sum(torch.stack([active.to(torch.float32),
+                                    seed.to(torch.float32)], 1))
+        cnt_i = cnts[:, 0].to(torch.int32)
+        seed_cnt = cnts[:, 1].to(torch.int32)
+    else:
+        sortz = sort_by_segment(flatten_batch(seg, num_segs), z.reshape(-1),
+                                b * num_segs)
+        cnt_i = ops.count(active)
+        k10 = (_f32(cfg.seed_percentile) * cnt_i.to(torch.float32)).to(
+            torch.int32)
+        z_th = sortz.order_stat(k10.reshape(-1)).reshape(b, num_segs) \
+            + _f32(cfg.th_seeds)
+        tg = ops.gather(torch.stack([z_th, tau_node], 1))
+        zth_pt, tau_pt = tg[:, 0], tg[:, 1]
+        seed = active & (z < zth_pt)
+        seed_cnt = ops.count(seed)
+    mins, maxs = ops.bbox(xyz, active)
+
+    # ---- early-outs, in reference order (cpp:111-140) ----
+    finished, label, fit_node, deficient = fit_cuda.early_out_masks(
+        cnt_i.to(torch.float32), seed_cnt.to(torch.float32), mins, maxs, real,
+        is_level0, _f32(cfg.flat_area_m2), _f32(cfg.flat_dz),
+        cfg.flat_min_points, cfg.min_seed_points)
+    t1 = ops.gather(torch.stack([finished, label, fit_node, deficient],
+                                1).to(torch.float32)) > 0.5
+    finished_pt, label_pt, fit_pt, deficient_pt = t1.unbind(1)
+
+    # ---- "min_seed_points lowest-z points" of deficient nodes (cpp:171-182)
+    if bool(deficient.any()):
+        idx_f = torch.arange(n, dtype=torch.float32, device=dev).expand(b, -1)
+        chosen = torch.zeros_like(seed)
+        for _ in range(cfg.min_seed_points):
+            cand = active & deficient_pt & ~chosen
+            m = ops.min(z, cand)
+            m_pt = ops.gather(torch.where(torch.isfinite(m), m, _BIG))
+            is_min = cand & (z == m_pt)
+            mi = ops.min(idx_f, is_min)
+            mi_pt = ops.gather(torch.where(torch.isfinite(mi), mi, _BIG))
+            chosen = chosen | (is_min & (idx_f == mi_pt))
+        seed = torch.where(deficient_pt, chosen, seed)
+    seed = seed & active
+
+    # ---- early-out labels; fitting nodes start from their seeds ----
+    ground = torch.where(active & finished_pt, label_pt, ground)
+    ground = torch.where(active & fit_pt, seed, ground)
+    done = done | (active & finished_pt)
+
+    # ---- iterative plane fitting (cpp:186-217), residual (cpp:219-228) ----
+    if impl == "fused":
+        ground, gcnt, resid = _fused_fit_resid(
+            cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
+            fit_node, num_segs, plain)
+    else:
+        for _ in range(cfg.max_iter):
+            gcnt, dist = _fit_step(ops, xyz, ground & active)
+            can_pt = ops.gather((gcnt >= 3.0).to(torch.float32)) > 0.5
+            new_g = dist < tau_pt
+            apply_pt = active & fit_pt & can_pt
+            changed = bool((apply_pt & (new_g != ground)).any())
+            ground = torch.where(apply_pt, new_g, ground)
+            if not changed:
+                break
+        g_final = ground & active
+        gcnt, dist = _fit_step(ops, xyz, g_final)
+        resid = ops.sum(dist * g_final.to(torch.float32)) \
+            / torch.clamp(gcnt, min=1.0)
+        resid = torch.where(gcnt >= 3.0, resid,
+                            torch.full_like(resid, math.inf))
+
+    # ---- split decision (cpp:231-235) ----
+    split_thresh = _F32(cfg.th_dist) * (
+        _F32(1.0) + _F32(cfg.split_residual_slope) * _F32(lvl))
+    min_sz = cfg.split_min_points_base + cfg.split_min_points_slope * lvl
+    depth_ok = lvl < min(cfg.max_split_depth, cfg.effective_levels - 1)
+    split = (fit_node & (resid > float(split_thresh)) & (cnt_i >= min_sz)
+             & depth_ok)
+    # fitting nodes that do not split are finished with their mask
+    done = done | (active & fit_pt & ~ops.gather_bool(split))
+    return done, ground, split
+
+
+def _child_remap(cfg, impl, xyz, pa, node, node_patch, done, split, plain):
+    """Execute the parent level's splits (engine.py:493-556): variance
+    axis, exact per-node median, compact child slots.  ``split`` (B,
+    cap_a + 1) is the parent level's split mask; the only active points are
+    those of split nodes.  Returns (node, node_patch (B, cap_a + 1), done).
+    """
+    b, _, n = xyz.shape
+    x, y = xyz[:, 0], xyz[:, 1]
+    num_p = cfg.num_patches
+    cap_a = max(cfg.max_active_nodes, num_p)
+    num_segs = cap_a + 1
+    trash = cap_a
+
+    active = pa.in_patch & ~done
+    seg = torch.where(active, node, trash)
+    ops = SegOps(seg, num_segs, _ops_impl(impl), plain=plain)
+    w = active.to(torch.float32)
+    cnt_i = ops.count(active)
+
+    # population-variance axis about the full-node centroid (cpp:237-250)
+    sums = ops.sum(torch.stack([x * w, y * w], 1))
+    c_pt = ops.gather(sums / torch.clamp(cnt_i.to(torch.float32),
+                                         min=1.0)[:, None])
+    dx = (x - c_pt[:, 0]) * w
+    dy = (y - c_pt[:, 1]) * w
+    var = ops.sum(torch.stack([dx * dx, dy * dy], 1))
+    axis_is_x = var[:, 0] > var[:, 1]
+
+    # exact per-node median: sorted[cnt // 2] (cpp:253-269)
+    val = torch.where(ops.gather_bool(axis_is_x), x, y)
+    sortv = sort_by_segment(flatten_batch(seg, num_segs), val.reshape(-1),
+                            b * num_segs)
+    median = sortv.order_stat((cnt_i // 2).reshape(-1)).reshape(b, num_segs)
+
+    # compact child slots; overflowing nodes keep their converged mask
+    split = split[:, :num_segs]
+    split_i = split.to(torch.int64)
+    base_slot = 2 * (torch.cumsum(split_i, 1) - split_i)
+    ok = split & (base_slot + 1 < cap_a)
+    t2 = ops.gather(torch.stack([median, ok.to(torch.float32),
+                                 base_slot.to(torch.float32)], 1))
+    median_pt, ok_pt = t2[:, 0], t2[:, 1] > 0.5
+    slot_pt = t2[:, 2].to(torch.int64)
+    done = done | (active & ~ok_pt)
+    go_right = (val > median_pt).to(torch.int64)   # val <= median -> left
+    node = torch.where(active & ok_pt, slot_pt + go_right, node)
+
+    # next level's node -> patch table (unused slots -> P)
+    idx0 = torch.where(ok, base_slot, cap_a + 1)
+    src = torch.where(ok, node_patch[:, :num_segs], num_p)
+    np_next = torch.full((b, cap_a + 3), num_p, dtype=torch.int64,
+                         device=xyz.device)
+    np_next.scatter_(1, idx0, src)
+    np_next.scatter_(1, idx0 + 1, src)
+    return node, np_next[:, :cap_a + 1], done
+
+
+def _generic_levels(cfg, impl, xyz, pa, tau_patch, zth_patch, plain):
+    """All levels on the generic engine (engine.py:627-659); returns the
+    (B, N) ground mask."""
+    b, _, n = xyz.shape
+    num_p = cfg.num_patches
+    cap_a = max(cfg.max_active_nodes, num_p)
+    node = pa.patch.to(torch.int64)
+    done = ~pa.in_patch
+    ground = torch.zeros_like(done)
+    done, ground, split = _level_body(
+        cfg, impl, xyz, pa, tau_patch, zth_patch, 0, num_p + 1, True, node,
+        None, done, ground, plain)
+    if cfg.effective_levels > 1:
+        split = torch.nn.functional.pad(split, (0, cap_a - num_p))
+        node_patch = torch.full((b, cap_a + 1), num_p, dtype=torch.int64,
+                                device=xyz.device)
+        node_patch[:, :num_p + 1] = torch.arange(num_p + 1, device=xyz.device)
+        lvl = 1
+        while lvl < cfg.effective_levels and bool(split.any()):
+            node, node_patch, done = _child_remap(
+                cfg, impl, xyz, pa, node, node_patch, done, split, plain)
+            done, ground, split = _level_body(
+                cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, cap_a + 1,
+                False, node, node_patch, done, ground, plain)
+            lvl += 1
+    return ground
+
+
 def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
                           cfg: PatchworkConfig,
                           plain: bool = False) -> GroundResult:
@@ -266,7 +580,17 @@ def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
     Runs on the device the tensors are on: the CUDA kernels on a CUDA
     tensor, their plain versions on a CPU tensor.  ``plain=True`` runs the
     plain versions on any device (the reference the kernels are held to).
+    ``cfg.segment_impl`` picks the engine as in the JAX package
+    (engine.py:568-625): ``"fused"`` (the default, :func:`.default_impl`)
+    takes the level path while the fit gate (``fit_cuda.megakernel_fits``)
+    admits the scan and the generic path above it; ``"scatter"``,
+    ``"onehot"`` and ``"pallas"`` take the generic path.  Fast mode
+    (``fast_covariance``) applies only under ``"fused"``; the others keep
+    exact semantics.
     """
+    impl = cfg.segment_impl or default_impl()
+    if impl not in IMPLS:
+        raise ValueError(f"unknown segment impl {impl!r}")
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"xyz must be (B, N, 3) float32, got "
                          f"{tuple(xyz.shape)} {xyz.dtype}")
@@ -274,13 +598,20 @@ def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
         raise ValueError("valid must be (B, N) bool")
     pa = assign_patches(xyz, valid, cfg, plain=plain)
     xyz = torch.where(pa.finite[..., None], xyz, torch.zeros_like(xyz))
-    if cfg.fast_covariance:
+    if cfg.fast_covariance and impl == "fused":
         xyz = _shift_to_patch_centers(cfg, xyz, pa)
     tau_patch = _f32(cfg.th_dist) * (1.0 + _f32(cfg.tau_slope) * pa.rel_dist)
     zth_patch = _f32(cfg.sensor_height) + _f32(cfg.seed_slope) * pa.rel_dist
-    run = level_reference if plain else level
-    ground = _fused_levels(cfg, xyz, pa, tau_patch.contiguous(),
-                           zth_patch.contiguous(), run)
+    num_p = cfg.num_patches
+    cap_a = max(cfg.max_active_nodes, num_p)
+    sp_max = sp_width((cap_a if cfg.effective_levels > 1 else num_p) + 1)
+    if impl == "fused" and _gate(xyz.shape[1], sp_max):
+        run = level_reference if plain else level
+        ground = _fused_levels(cfg, xyz, pa, tau_patch.contiguous(),
+                               zth_patch.contiguous(), run)
+    else:
+        ground = _generic_levels(cfg, impl, xyz.permute(0, 2, 1).contiguous(),
+                                 pa, tau_patch, zth_patch, plain)
     return GroundResult(ground=ground & pa.in_patch, valid=pa.finite,
                         in_zone=pa.in_zone, in_patch=pa.in_patch)
 

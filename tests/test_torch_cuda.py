@@ -170,6 +170,108 @@ def test_slice_matches_plain(dev, scene, mode):
         assert launches["seg_order_stat"] > 0
 
 
+def _extreme_values(rng, shape):
+    vals = rng.normal(0, 50, shape).astype(np.float32)
+    vals[..., ::7] = 0.0
+    vals[..., 1::13] = -0.0
+    vals[..., 2::11] = np.float32(1e-42)
+    vals[..., 3::17] = np.float32(-1e-42)
+    vals[..., 4::101] = np.float32(3e38)
+    vals[..., 5::103] = np.float32(-3e38)
+    return vals
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_seg_gather_and_minmax_match_plain(dev, b):
+    from patchwork_tpu_torch.kernels import seg_cuda
+
+    rng = np.random.default_rng(b)
+    n, s = 20000, 161
+    seg = torch.from_numpy(rng.integers(0, s, (b, n)).astype(np.int32)).to(dev)
+    for c in (1, 3):
+        table = torch.from_numpy(_extreme_values(rng, (b, c, s))).to(dev)
+        vals = torch.from_numpy(_extreme_values(rng, (b, c, n))).to(dev)
+        mask = torch.from_numpy(rng.random((b, n)) < 0.6).to(dev)
+        mask[seg == 5] = False                 # an empty segment
+        fit_cuda.reset_launches()
+        got = seg_cuda.seg_gather(table, seg)
+        mins, maxs = seg_cuda.seg_minmax(vals, seg, mask, s)
+        assert fit_cuda.LAUNCHES["seg_gather"] == 1
+        assert fit_cuda.LAUNCHES["seg_minmax"] == 1
+        assert _equal(got, seg_cuda.plain.seg_gather(table, seg))
+        ref_min, ref_max = seg_cuda.plain.seg_minmax(vals, seg, mask, s)
+        assert _equal(mins, ref_min) and _equal(maxs, ref_max)
+        assert torch.isposinf(mins[:, :, 5]).all()
+        assert torch.isneginf(maxs[:, :, 5]).all()
+
+
+def _above_gate(n, sp):
+    """The fit gate as if the scan were above the level path's limit:
+    level 0 (Sp 128) takes fit_level, deeper levels the loop of sweeps."""
+    return sp < 256
+
+
+def _scans(scene, n=16384):
+    return torch.from_numpy(np.stack([SCENES[scene](n, seed=i)
+                                      for i in range(2)]))
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_fit_level_matches_plain(dev, monkeypatch, scene, fast):
+    # a level-0 input of the generic path: binning, seeded mask, tau per patch
+    seen = []
+    orig = fit_cuda.fit_level
+
+    def capture(p, g0, *args, **kw):
+        seen.append((p.clone(), g0.clone(), args, kw))
+        return orig(p, g0, *args, **kw)
+
+    monkeypatch.setattr(fit_cuda, "megakernel_fits", _above_gate)
+    monkeypatch.setattr(fit_cuda, "fit_level", capture)
+    xyz = _scans(scene).to(dev)
+    filter_ground_batched(xyz, torch.ones(xyz.shape[:2], dtype=torch.bool,
+                                          device=dev),
+                          PatchworkConfig(fast_covariance=fast))
+    p, g0, (num_segs, max_iter), kw = seen[0]
+    assert kw["fast"] == fast
+    fit_cuda.reset_launches()
+    g_k, s_k = orig(p, g0, num_segs, max_iter, fast=fast)
+    assert fit_cuda.LAUNCHES["fit_level"] == 1
+    g_p, s_p = fit_cuda.plain.fit_level(p, g0, num_segs, max_iter, fast)
+    assert _equal(g_k, g_p) and _equal(s_k, s_p)
+    assert not torch.equal(g_k, g0), "no refit ran"
+
+
+@pytest.mark.parametrize("impl", ["pallas", "fused"])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_generic_path_matches_plain(dev, monkeypatch, scene, impl):
+    from patchwork_tpu_torch.segment import engine
+
+    def no_level_path(*args, **kwargs):
+        raise AssertionError("the level path ran")
+
+    if impl == "fused":
+        monkeypatch.setattr(fit_cuda, "megakernel_fits", _above_gate)
+    monkeypatch.setattr(engine, "level", no_level_path)
+    monkeypatch.setattr(engine, "level_reference", no_level_path)
+    cfg = PatchworkConfig(segment_impl=impl)
+    xyz = _scans(scene).to(dev)
+    valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    fit_cuda.reset_launches()
+    g_k = filter_ground_batched(xyz, valid, cfg).ground
+    launches = dict(fit_cuda.LAUNCHES)
+    g_p = filter_ground_batched(xyz, valid, cfg, plain=True).ground
+    assert torch.equal(g_k, g_p)
+    assert fit_cuda.LAUNCHES == launches, "the plain path launched a kernel"
+    for fam in ("seg_sum", "seg_gather", "seg_minmax"):
+        assert launches[fam] > 0, fam
+    if impl == "fused":
+        assert launches["fit_level"] > 0
+        if scene == "split":
+            assert launches["apply_sweep"] > 0
+
+
 def test_wrappers_reject_bad_cuda_inputs(dev):
     pts, state, tab, trash = _sweep_inputs(dev, 7)
     with pytest.raises(ValueError):     # N not a tile multiple

@@ -152,17 +152,20 @@ def test_segops_vs_scatter():
     where = rng.random(n) < 0.7
     table = rng.normal(0, 1, (s, 2)).astype(np.float32)
     j = jseg.SegOps(jnp.asarray(seg), s, "scatter")
-    t = tseg.SegOps(torch.from_numpy(seg), s)
-    np.testing.assert_array_equal(t.count(torch.from_numpy(where)).numpy(),
+    # the port's SegOps is batched and channel-first: a batch of one scan
+    t = tseg.SegOps(torch.from_numpy(seg)[None], s, "scatter")
+    xyz_t = torch.from_numpy(xyz.T.copy())[None]
+    where_t = torch.from_numpy(where)[None]
+    np.testing.assert_array_equal(t.count(where_t)[0].numpy(),
                                   np.asarray(j.count(jnp.asarray(where))))
-    np.testing.assert_allclose(t.sum(torch.from_numpy(xyz)).numpy(),
+    np.testing.assert_allclose(t.sum(xyz_t)[0].numpy().T,
                                np.asarray(j.sum(jnp.asarray(xyz))),
                                rtol=1e-5, atol=1e-3)
-    for got, ref in zip(t.bbox(torch.from_numpy(xyz), torch.from_numpy(where)),
+    for got, ref in zip(t.bbox(xyz_t, where_t),
                         j.bbox(jnp.asarray(xyz), jnp.asarray(where))):
-        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    np.testing.assert_array_equal(t.gather(torch.from_numpy(table)).numpy(),
-                                  np.asarray(j.gather(jnp.asarray(table))))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref))
+    got = t.gather(torch.from_numpy(table.T.copy())[None])[0].numpy().T
+    np.testing.assert_array_equal(got, np.asarray(j.gather(jnp.asarray(table))))
     k = rng.integers(0, 100, s).astype(np.int32)
     got = tseg.sort_by_segment(torch.from_numpy(seg), torch.from_numpy(xyz[:, 2]),
                                s).order_stat(torch.from_numpy(k))
