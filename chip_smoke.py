@@ -23,7 +23,21 @@ Phases, one line each:
   5. quality: the five hard labeled scenes at 65536 points (seeds 0, 1),
      IoU within 0.001 of EVAL_r05.json in both modes;
   6. timing: scans/s of the kernel path and the plain path (CUDA events),
-     and of the generic path beside the level path forced on the same scans.
+     and of the generic path beside the level path forced on the same scans;
+  7. front ends, through the entry points a user calls, with the launch
+     counts read around those calls only: (a) LidarFusion on the card fuses
+     eight 3-LiDAR IAC scenes to 131072 points each, bit for bit as on the
+     CPU, and filter_ground_batched segments them (exact masks equal the
+     plain path's, fast IoU >= 0.999); (b) RecursivePatchwork's
+     sample_ground_and_obstacles; (c) the CLI in this process on the demo
+     cloud and on a split-terrain KITTI frame (whose patches split, so the
+     order statistic runs), with both PNGs decoded; (d) the CLI as a
+     process on a 3-topic MCAP (bag -> fusion -> engine); (e) a JSON launch
+     descriptor over eight 128-beam KITTI frames of 153600 points, default
+     config (fit_level) and segment_impl "pallas"; (f) PatchworkNode over 16
+     velodyne frames at batch sizes 1 and 8, with frames/s and stage times.
+     Every count and mask is held to filter_ground/filter_ground_batched on
+     the same points, and all eight kernel families must launch.
 Then a JSON line per kernel family and, last, the device line.  Exits
 non-zero, and prints no result line, if there is no CUDA device, a build
 fails, or any phase fails.
@@ -31,9 +45,17 @@ fails, or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
+import struct
+import subprocess
 import sys
+import tempfile
+import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -161,6 +183,286 @@ def _time_ms(fn, args, kwargs, reps: int) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def scans_per_s(xyz, valid, cfg, plain, reps):
+    """Scans/s of filter_ground_batched over ``reps`` calls after a warm-up
+    (CUDA events)."""
+    import torch
+    from patchwork_tpu_torch import filter_ground_batched
+
+    filter_ground_batched(xyz, valid, cfg, plain=plain)   # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        filter_ground_batched(xyz, valid, cfg, plain=plain)
+    end.record()
+    torch.cuda.synchronize()
+    return reps * xyz.shape[0] / (start.elapsed_time(end) / 1000.0)
+
+
+def read_png(path: str):
+    """Decode an 8-bit RGB PNG with unfiltered rows, as viz.bev.save_png
+    writes it, to an (H, W, 3) uint8 array (zlib only)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise ValueError(f"{path}: not 8-bit RGB")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _cli_counts(text: str):
+    g = re.search(r"Ground points: (\d+)", text)
+    n = re.search(r"Non-ground points: (\d+)", text)
+    return (int(g.group(1)), int(n.group(1))) if g and n else None
+
+
+def _write_kitti(directory: str, clouds) -> None:
+    import numpy as np
+
+    os.makedirs(directory, exist_ok=True)
+    for i, pts in enumerate(clouds):
+        rec = np.concatenate([pts, np.ones((len(pts), 1), np.float32)], 1)
+        rec.astype(np.float32).tofile(os.path.join(directory, f"{i:06d}.bin"))
+
+
+def phase7(dev, card: str, fails: Failures) -> dict:
+    """The front ends on the card (see the module docstring); returns the
+    launch counts of their own calls per kernel family."""
+    import numpy as np
+    import torch
+    from patchwork_tpu_torch import (
+        PatchworkConfig, RecursivePatchwork, cli, filter_ground,
+        filter_ground_batched)
+    from patchwork_tpu_torch.core.config import default_lidar_configs
+    from patchwork_tpu_torch.fusion.fusion import LidarFusion
+    from patchwork_tpu_torch.io.bag import write_mcap_topics
+    from patchwork_tpu_torch.io.synthetic import (
+        demo_point_cloud, fused_iac_cloud, iac_three_lidar_scene,
+        velodyne_like_cloud)
+    from patchwork_tpu_torch.kernels import fit_cuda
+    from patchwork_tpu_torch.launch import load_launch, run_launch
+    from patchwork_tpu_torch.node import PatchworkNode
+    from patchwork_tpu_torch.viz.bev import (
+        bev_ground_nonground_image, bev_height_image)
+
+    fit_cuda.reset_launches()
+    front = {k: 0 for k in fit_cuda.LAUNCHES}
+
+    def front_end(fn, *args, **kwargs):
+        """Call an entry point, adding its launches to phase 7's counts."""
+        before = dict(fit_cuda.LAUNCHES)
+        out = fn(*args, **kwargs)
+        for k, v in fit_cuda.LAUNCHES.items():
+            front[k] += v - before[k]
+        return out
+
+    def on_card(pts):
+        xyz = torch.from_numpy(np.ascontiguousarray(pts)).to(dev)
+        return xyz, torch.ones(xyz.shape[:-1], dtype=torch.bool, device=dev)
+
+    def counts(res):
+        return int(res.num_ground()), int(res.num_non_ground())
+
+    cfg_exact, cfg_fast = PatchworkConfig(), PatchworkConfig(fast_covariance=True)
+
+    # (a) fusion, then the engine on the fused clouds
+    fused = [front_end(fused_iac_cloud, N, seed=s, device=dev)
+             for s in range(B)]
+    same = all(np.array_equal(a.view(np.int32),
+                              fused_iac_cloud(N, seed=s).view(np.int32))
+               for s, a in enumerate(fused))
+    clouds0 = iac_three_lidar_scene(N // 3 + 512, seed=0)
+    fuser = LidarFusion(device=dev)
+    front_end(fuser.fuse, clouds0)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        front_end(fuser.fuse, clouds0).xyz.sum()
+    torch.cuda.synchronize()
+    fuse_ms = (time.perf_counter() - t0) / 5 * 1e3
+    iac = on_card(np.stack(fused))
+    g_ex = front_end(filter_ground_batched, *iac, cfg_exact).ground
+    g_fa = front_end(filter_ground_batched, *iac, cfg_fast).ground
+    g_pl = filter_ground_batched(*iac, cfg_exact, plain=True).ground
+    diff = int((g_ex != g_pl).sum().item())
+    iou = min_iou(g_ex, g_fa)
+    rate = {m: scans_per_s(*iac, c, False, 3)
+            for m, c in (("exact", cfg_exact), ("fast", cfg_fast))}
+    print(f"[7a fusion] fused_iac B={B} N={N} on the card equal to the CPU "
+          f"fusion: {same}; LidarFusion.fuse of one 3 x {N // 3 + 512} scene "
+          f"{fuse_ms:.3f} ms; exact kernel vs plain differing mask bits "
+          f"{diff}; fast vs exact min IoU {iou:.6f}; engine {rate['exact']:.1f}"
+          f" scans/s exact, {rate['fast']:.1f} fast on {card}", flush=True)
+    fails.check(same, "fused_iac: the card's fusion differs from the CPU's")
+    fails.check(diff == 0, f"fused_iac exact: {diff} mask bits differ")
+    fails.check(iou >= IOU_FAST_MIN, f"fused_iac: fast IoU {iou} < 0.999")
+
+    # (b) the API's enhanced filtering
+    rp_cpu = RecursivePatchwork(cfg_exact)
+    sel = front_end(RecursivePatchwork(cfg_exact, device=dev)
+                    .sample_ground_and_obstacles, fused[0])
+    sel_cpu = rp_cpu.sample_ground_and_obstacles(fused[0])
+    ground_rows = {r.tobytes() for r in rp_cpu.filter_ground_points(fused[0])[0]}
+
+    def band(rows):
+        return np.array([r for r in rows if r.tobytes() not in ground_rows])
+
+    b_card, b_cpu = band(sel), band(sel_cpu)
+    n_sample = min(2000, len(ground_rows))
+    ok = (np.array_equal(b_card, b_cpu)
+          and len(sel) == len(b_card) + n_sample == len(sel_cpu))
+    print(f"[7b api] sample_ground_and_obstacles fused_iac seed 0: band "
+          f"{len(b_card)} (CPU {len(b_cpu)}), selected {len(sel)} = band + "
+          f"{n_sample}: {ok}", flush=True)
+    fails.check(ok, "sample_ground_and_obstacles differs from the CPU port")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the CLI in this process: demo cloud, then a split-terrain frame
+        prefix = os.path.join(tmp, "demo")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = front_end(cli.main, [
+                "--demo", "--num-points", str(N), "--use-patchwork",
+                "--separate-display", "--device", dev.type,
+                "--out-prefix", prefix])
+        cli_ms = (time.perf_counter() - t0) * 1e3
+        pts = demo_point_cloud(N, seed=0)
+        res = filter_ground(*on_card(pts), cfg_exact)
+        non_ground = res.valid & ~res.ground
+        img1 = read_png(prefix + "_patchwork.png")
+        want1 = bev_ground_nonground_image(on_card(pts)[0], res.ground,
+                                           non_ground, 300, 150, -150.0,
+                                           -75.0, 150.0, 75.0)
+        filt = RecursivePatchwork(cfg_exact, device=dev) \
+            .sample_ground_and_obstacles(pts, 1.1, 0.5, seed=0)
+        img2 = read_png(prefix + "_enhanced.png")
+        want2 = bev_height_image(*on_card(filt), 300, 150, -150.0, -75.0,
+                                 150.0, 75.0)
+        ok = (rc == 0 and _cli_counts(out.getvalue()) == counts(res)
+              and np.array_equal(img1, want1.cpu().numpy())
+              and np.array_equal(img2, want2.cpu().numpy()))
+        print(f"[7c cli] demo N={N}: rc {rc}, counts "
+              f"{_cli_counts(out.getvalue())} vs filter_ground {counts(res)}, "
+              f"PNGs decode to the images: {ok}; {cli_ms:.1f} ms in process",
+              flush=True)
+        fails.check(ok, "CLI demo: counts or images differ")
+
+        kdir = os.path.join(tmp, "split")
+        pts = split_terrain_cloud(N, seed=0)
+        _write_kitti(kdir, [pts])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = front_end(cli.main, [
+                "--kitti", kdir, "--frame", "0", "--use-patchwork",
+                "--device", dev.type, "--out-prefix",
+                os.path.join(tmp, "split")])
+        want = counts(filter_ground(*on_card(pts), cfg_exact))
+        ok = rc == 0 and _cli_counts(out.getvalue()) == want
+        print(f"[7c cli] split-terrain KITTI frame N={N}: rc {rc}, counts "
+              f"{_cli_counts(out.getvalue())} vs filter_ground {want}",
+              flush=True)
+        fails.check(ok, "CLI kitti: counts differ")
+
+        # (d) the CLI as a process: 3-topic bag -> fusion -> engine
+        bag = os.path.join(tmp, "iac.mcap")
+        write_mcap_topics(bag, {c.topic_name + "/points": [x] for c, x in
+                                zip(default_lidar_configs(), clouds0)},
+                          compression="none")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "patchwork_tpu_torch.cli", bag,
+             "--use-patchwork"], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=600)
+        proc_s = time.perf_counter() - t0
+        fused0 = LidarFusion(device=dev).fuse(clouds0).to_numpy()
+        want = counts(RecursivePatchwork(cfg_exact, device=dev)
+                      .segment(fused0)[0])
+        got = _cli_counts(proc.stdout)
+        print(f"[7d cli] python -m patchwork_tpu_torch.cli <3-topic mcap> "
+              f"--use-patchwork: rc {proc.returncode}, counts {got} vs "
+              f"fusion + engine {want} ({len(fused0)} fused points); "
+              f"{proc_s:.1f} s as a process", flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:] + proc.stderr[-2000:], flush=True)
+        fails.check(proc.returncode == 0 and got == want,
+                    "CLI bag: counts differ or the process failed")
+
+        # (e) launch descriptor over 128-beam KITTI frames of N_GEN points
+        kdir = os.path.join(tmp, "velo128")
+        frames = [velodyne_like_cloud(N_GEN, seed=s, num_beams=128)
+                  for s in range(B)]
+        _write_kitti(kdir, frames)
+        for label, config in (("default", {}), ("pallas",
+                                                {"segment_impl": "pallas"})):
+            desc_path = os.path.join(tmp, f"launch_{label}.json")
+            with open(desc_path, "w") as f:
+                json.dump({"source": {"kitti": kdir}, "capacity": N_GEN,
+                           "config": config}, f)
+            before = dict(front)
+            t0 = time.perf_counter()
+            results, node = front_end(run_launch, load_launch(desc_path),
+                                      log=lambda s: None, device=dev)
+            dt = time.perf_counter() - t0
+            got_l = {k: front[k] - before[k] for k in front}
+            ref = filter_ground_batched(*on_card(np.stack(frames)),
+                                        node.config).ground.cpu().numpy()
+            ok = (len(results) == B and all(
+                np.array_equal(r.ground_mask, ref[r.index]) for r in results))
+            print(f"[7e launch] {label} config, {len(results)} of {B} frames "
+                  f"of {N_GEN} points, masks equal filter_ground_batched: "
+                  f"{ok}; {B / dt:.1f} frames/s; launches {got_l}", flush=True)
+            fails.check(ok, f"launch {label}: results missing or masks differ")
+
+    # (f) the streaming node over 16 velodyne frames
+    frames = [velodyne_like_cloud(N, seed=s) for s in range(2 * B)]
+    for bs in (1, B):
+        node = PatchworkNode(capacity=N, batch_size=bs, device=dev)
+        if bs == 1:
+            ref = np.concatenate([
+                filter_ground_batched(*on_card(np.stack(frames[i:i + B])),
+                                      node.config).ground.cpu().numpy()
+                for i in (0, B)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = front_end(node.run, frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ok = (len(results) == len(frames) and all(
+            np.array_equal(r.ground_mask, ref[r.index]) for r in results))
+        print(f"[7f node] batch_size {bs}: {len(results)} of {len(frames)} "
+              f"frames of {N} points, masks equal filter_ground_batched: {ok};"
+              f" {len(results) / dt:.1f} frames/s on {card}\n"
+              f"{node.times.report()}", flush=True)
+        fails.check(ok, f"node batch_size {bs}: results missing or masks "
+                        "differ")
+
+    print(f"[7 front ends] launches {front}", flush=True)
+    for fam, n in front.items():
+        fails.check(n > 0, f"kernel family {fam} never launched by the "
+                           "front ends")
+    return front
 
 
 def main() -> int:
@@ -494,18 +796,6 @@ def main() -> int:
         print(f"[5 quality] {name}: " + ", ".join(line), flush=True)
 
     # ---- 6. timing ----
-    def scans_per_s(xyz, valid, cfg, plain, reps):
-        filter_ground_batched(xyz, valid, cfg, plain=plain)   # warm-up
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            filter_ground_batched(xyz, valid, cfg, plain=plain)
-        end.record()
-        torch.cuda.synchronize()
-        return reps * xyz.shape[0] / (start.elapsed_time(end) / 1000.0)
-
     for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
         rk = scans_per_s(*velo, cfg, False, 10)
         rp = scans_per_s(*velo, cfg, True, 1)
@@ -520,6 +810,10 @@ def main() -> int:
         print(f"[6 timing] velodyne128 B={B} N={n} {mode}: generic path "
               f"{rg:.1f} scans/s, level path forced {rl:.1f} scans/s on "
               f"{card}", flush=True)
+
+    # ---- 7. front ends ----
+    launches_front = phase7(dev, card, fails)
+    launches = {k: launches[k] + launches_front[k] for k in launches}
 
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed",

@@ -76,9 +76,9 @@ class PatchworkConfig:
     # pathologically fragmented scenes.
     max_active_nodes_cfg: int = 0
 
-    # Segment-op backend of the JAX reference.  Kept so configs round-trip
-    # through to_json(); this engine has one path (kernels on a CUDA
-    # tensor, their plain versions on a CPU tensor) and ignores it.
+    # Segment-op backend, as in the JAX reference: None/"fused" (the level
+    # path up to the fit gate), "scatter", "onehot" or "pallas" (the
+    # generic engine; "pallas" on the segment-op kernels).
     segment_impl: str | None = None
 
     # Fast (IoU-parity) covariance mode: points

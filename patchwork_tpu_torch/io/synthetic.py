@@ -1,17 +1,21 @@
-"""Seeded synthetic point-cloud generators, NumPy only.
+"""Seeded synthetic point-cloud generators in NumPy.
 
 A copy of the generators in ``patchwork_tpu/io/synthetic.py`` that the
 port's main path and ``chip_smoke.py`` use: the machine with the card has
 no JAX, and importing the reference package imports it.  The same seed
-gives bit-identical arrays (tests/test_torch_synthetic.py checks this).
+gives bit-identical arrays (tests/test_torch_synthetic.py checks this);
+:func:`fused_iac_cloud` fuses through the port's own
+:class:`~patchwork_tpu_torch.fusion.fusion.LidarFusion`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["demo_point_cloud", "velodyne_like_cloud", "hard_labeled_scene",
-           "HARD_SCENES"]
+__all__ = ["demo_point_cloud", "demo_labels", "uniform_cube_cloud",
+           "velodyne_like_cloud", "iac_three_lidar_scene", "fused_iac_cloud",
+           "hard_labeled_scene", "HARD_SCENES"]
 
 
 def demo_point_cloud(
@@ -39,6 +43,82 @@ def demo_point_cloud(
     obst[:, 2] = rng.uniform(obstacle_z[0], obstacle_z[1], n_obst)
 
     return np.concatenate([ground, obst]).astype(np.float32)
+
+
+def demo_labels(num_points: int = 10000, ground_fraction: float = 0.7) -> np.ndarray:
+    """True labels for demo_point_cloud rows (ground=True), by construction."""
+    n_ground = int(num_points * ground_fraction)
+    labels = np.zeros(num_points, bool)
+    labels[:n_ground] = True
+    return labels
+
+
+def uniform_cube_cloud(num_points: int = 100000, seed: int = 0, extent: float = 10.0):
+    """U(-extent, extent)^3 cloud (reference: src/test_cuda.cpp:10-23)."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-extent, extent, (num_points, 3)).astype(np.float32)
+
+
+def iac_three_lidar_scene(points_per_sensor: int = 4096, seed: int = 0):
+    """Per-sensor clouds for the reference's default 3-LiDAR IAC layout.
+
+    Matches setDefaultLidarConfigs (src/lidar_fusion.cpp:20-36): front 0
+    deg, left +120 deg, right -120 deg, ego radius 2.5 m.  Each sensor
+    observes a forward +-80 deg wedge of the SAME world (ground plane with
+    pillar obstacles) in its own frame, so the fused cloud covers 360 deg
+    with ~60 deg of pairwise overlap; some returns land inside the ego
+    radius.  Returns a list of 3 (points_per_sensor, 3) float32 arrays in
+    sensor frames; fusing with ``stack_extrinsics(default_lidar_configs())``
+    reconstructs the world-frame scene.
+    """
+    yaws = np.deg2rad([0.0, 120.0, -120.0]).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    clouds = []
+    for yaw in yaws:
+        n = points_per_sensor
+        n_obst = int(n * 0.25)
+        n_ground = n - n_obst
+        # world-frame wedge centred on this sensor's heading
+        ang = rng.uniform(yaw - np.deg2rad(80), yaw + np.deg2rad(80), n_ground)
+        rad = np.sqrt(rng.uniform(1.0**2, 60.0**2, n_ground))  # incl. r<2.5
+        g = np.empty((n_ground, 3), np.float64)
+        g[:, 0] = rad * np.cos(ang)
+        g[:, 1] = rad * np.sin(ang)
+        g[:, 2] = rng.normal(0.0, 0.05, n_ground)
+        # pillar obstacles inside the same wedge
+        ao = rng.uniform(yaw - np.deg2rad(80), yaw + np.deg2rad(80), n_obst)
+        ro = np.sqrt(rng.uniform(4.0**2, 40.0**2, n_obst))
+        o = np.empty((n_obst, 3), np.float64)
+        o[:, 0] = ro * np.cos(ao)
+        o[:, 1] = ro * np.sin(ao)
+        o[:, 2] = rng.uniform(0.5, 3.0, n_obst)
+        world = np.concatenate([g, o])
+        # express in the sensor frame: local = R(-yaw) @ world
+        c, s = np.cos(-yaw), np.sin(-yaw)
+        local = world.copy()
+        local[:, 0] = c * world[:, 0] - s * world[:, 1]
+        local[:, 1] = s * world[:, 0] + c * world[:, 1]
+        clouds.append(local.astype(np.float32))
+    return clouds
+
+
+def fused_iac_cloud(num_points: int = 131072, seed: int = 0,
+                    device: torch.device | str = "cpu") -> np.ndarray:
+    """One merged 3-sensor IAC cloud of exactly ``num_points`` world-frame
+    points: :func:`iac_three_lidar_scene` fused on ``device`` by the port's
+    LidarFusion (stacked extrinsics + ego masks), ego-removed points
+    dropped.  Equal, bit for bit, to the JAX generator's output."""
+    from ..core.config import default_lidar_configs
+    from ..fusion.fusion import LidarFusion
+
+    per = num_points // 3 + 512  # headroom for ego-removed returns
+    clouds = iac_three_lidar_scene(per, seed=seed)
+    xyz = LidarFusion(default_lidar_configs(), device=device).fuse(
+        clouds).to_numpy()
+    if len(xyz) < num_points:  # pragma: no cover - headroom covers this
+        reps = -(-num_points) // len(xyz)
+        xyz = np.tile(xyz, (reps, 1))
+    return xyz[:num_points].astype(np.float32)
 
 
 def velodyne_like_cloud(

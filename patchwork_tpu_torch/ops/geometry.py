@@ -1,8 +1,10 @@
-"""Closed-form batched 3x3 symmetric eigensolve in plain PyTorch.
+"""Masked centroid and covariance, the closed-form batched 3x3 symmetric
+eigensolve, and the masked PCA plane fit, in plain PyTorch.
 
-Counterpart of ``patchwork_tpu/ops/geometry.py:57-127`` with the same
-expression tree, term for term, so results track the JAX reference to a
-few ulp (the trigonometric functions come from another math library).
+Counterpart of ``patchwork_tpu/ops/geometry.py``.  The eigensolve keeps
+the JAX reference's expression tree, term for term, so results track it
+to a few ulp (the trigonometric functions come from another math
+library); the masked sums add in PyTorch's order, not XLA's dot order.
 The engine's per-node plane normal (segment/engine.py, kernels/fit_cuda.py)
 follows the row form of the same formulas.
 """
@@ -13,10 +15,34 @@ import torch
 
 from ..core.device import true_div
 
-__all__ = ["eigvals3x3", "smallest_eigenvector3x3", "eigh3x3"]
+__all__ = ["masked_centroid", "masked_covariance", "eigvals3x3",
+           "smallest_eigenvector3x3", "eigh3x3", "fit_plane_masked"]
 
 _EPS = 1e-12
 _TWO_PI_3 = 2.0943951023931953
+
+
+def masked_centroid(xyz: torch.Tensor, mask: torch.Tensor):
+    """Mean of the masked points of (..., N, 3); zero when the mask is empty
+    (point_cloud_processor.cpp:58-70).  Returns (centroid (..., 3), count
+    (...,) float32)."""
+    w = mask.to(torch.float32)
+    n = w.sum(dim=-1)
+    s = (w[..., None] * xyz).sum(dim=-2)
+    c = s / torch.clamp(n, min=1.0)[..., None]
+    return torch.where(n[..., None] > 0, c, torch.zeros_like(c)), n
+
+
+def masked_covariance(xyz: torch.Tensor, mask: torch.Tensor,
+                      centroid: torch.Tensor) -> torch.Tensor:
+    """Two-pass sample covariance of the masked points, normalized by
+    (n - 1); zero for n < 2 (point_cloud_processor.cpp:72-86)."""
+    w = mask.to(torch.float32)
+    n = w.sum(dim=-1)
+    d = (xyz - centroid[..., None, :]) * w[..., None]
+    cov = torch.einsum("...ni,...nj->...ij", d, d)
+    cov = cov / torch.clamp(n - 1.0, min=1.0)[..., None, None]
+    return torch.where((n > 1.5)[..., None, None], cov, torch.zeros_like(cov))
 
 
 def eigvals3x3(a: torch.Tensor) -> torch.Tensor:
@@ -86,3 +112,26 @@ def eigh3x3(a: torch.Tensor):
     """(eigenvalues ascending, smallest-eigenvalue eigenvector)."""
     vals = eigvals3x3(a)
     return vals, smallest_eigenvector3x3(a, vals[..., 0])
+
+
+def fit_plane_masked(xyz: torch.Tensor, mask: torch.Tensor):
+    """Batched masked PCA plane fit (src/recursive_patchwork.cpp:77-107).
+
+    Centroid, covariance / (n - 1), the smallest-eigenvalue eigenvector
+    flipped to +Z, and the mean |point-plane distance| over the masked
+    points; for n < 3 the sentinel is centroid 0, normal +Z, residual +inf.
+    Returns (centroid (..., 3), normal (..., 3), residual (...,), n (...,)).
+    """
+    centroid, n = masked_centroid(xyz, mask)
+    cov = masked_covariance(xyz, mask, centroid)
+    _, normal = eigh3x3(cov)
+    normal = torch.where(normal[..., 2:3] < 0, -normal, normal)
+    d = torch.abs(((xyz - centroid[..., None, :]) * normal[..., None, :])
+                  .sum(dim=-1))
+    resid = (d * mask.to(torch.float32)).sum(dim=-1) / torch.clamp(n, min=1.0)
+    bad = n < 3
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=xyz.dtype, device=xyz.device)
+    centroid = torch.where(bad[..., None], torch.zeros_like(centroid), centroid)
+    normal = torch.where(bad[..., None], up.expand_as(normal), normal)
+    resid = torch.where(bad, torch.full_like(resid, float("inf")), resid)
+    return centroid, normal, resid, n

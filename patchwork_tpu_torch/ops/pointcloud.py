@@ -14,6 +14,7 @@ import torch
 __all__ = [
     "finite_mask",
     "rotate_2d",
+    "transform_4x4",
     "distance_2d",
     "polar_angle",
     "radius_mask",
@@ -40,6 +41,24 @@ def rotate_2d(xyz: torch.Tensor, angle_degrees: float) -> torch.Tensor:
     return torch.stack([x * c - y * s, x * s + y * c, z], dim=-1)
 
 
+def transform_4x4(xyz: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """Apply homogeneous 4x4 transforms with a perspective divide.
+
+    ``xyz`` is (..., N, 3); ``matrix`` (..., 4, 4) broadcasts against its
+    leading dims (e.g. (S, 4, 4) stacked extrinsics for fusion).  Each row
+    is summed pairwise, ``(x*m0 + y*m1) + (z*m2 + 1*m3)``, the order of the
+    JAX reference's einsum (ops/pointcloud.py:59-70) on the CPU: a batched
+    matmul or a left-to-right sum adds in another order and moves fused
+    points by an ulp, which can flip a mask bit downstream.  Separate
+    multiplies and adds give the same bits on the CPU and on a CUDA tensor.
+    """
+    m = matrix.to(device=xyz.device, dtype=torch.float32)[..., None, :, :]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    rows = [(x * m[..., i, 0] + y * m[..., i, 1])
+            + (z * m[..., i, 2] + m[..., i, 3]) for i in range(4)]
+    return torch.stack(rows[:3], dim=-1) / rows[3][..., None]
+
+
 def distance_2d(xyz: torch.Tensor) -> torch.Tensor:
     """sqrt(x^2 + y^2) (cuda_wrapper.cu:48-55)."""
     x, y = xyz[..., 0], xyz[..., 1]
@@ -59,9 +78,14 @@ def radius_mask(distances: torch.Tensor, radius: float) -> torch.Tensor:
     return distances <= radius
 
 
-def ego_mask(xyz: torch.Tensor, radius: float) -> torch.Tensor:
-    """True for points to KEEP (outside the ego radius): d > radius."""
-    return distance_2d(xyz) > radius
+def ego_mask(xyz: torch.Tensor, radius) -> torch.Tensor:
+    """True for points to KEEP (outside the ego radius): d > radius.
+
+    ``radius`` is a number or a float32 tensor that broadcasts against the
+    leading dims (e.g. ``ego_radius[:, None]`` for stacked sensors).
+    """
+    return distance_2d(xyz) > torch.as_tensor(radius, dtype=torch.float32,
+                                              device=xyz.device)
 
 
 def height_band_mask(xyz: torch.Tensor, min_height: float,

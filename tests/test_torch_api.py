@@ -68,9 +68,18 @@ def test_api_config_roundtrip():
     assert int(res.num_ground()) + int(res.num_non_ground()) <= 3000
 
 
+_MODULES = ["kernels.fit_cuda", "kernels.seg_cuda", "api", "processor",
+            "node", "launch", "cli", "core.timing", "core.types",
+            "fusion.fusion", "io.synthetic", "io.kitti", "io.native",
+            "io.bag", "ops.sampling", "ops.geometry", "ops.pointcloud",
+            "utils.metrics", "utils.checkpoint", "utils.debug", "viz.bev",
+            "viz.visualization"]
+
+
 def test_imports_without_jax():
+    mods = ", ".join(f"patchwork_tpu_torch.{m}" for m in _MODULES)
     code = ("import sys; sys.modules['jax'] = None; "
-            "import patchwork_tpu_torch, patchwork_tpu_torch.kernels.fit_cuda; "
+            f"import patchwork_tpu_torch, {mods}; "
             "assert not any(m == 'patchwork_tpu' or m.startswith('patchwork_tpu.')"
             " for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

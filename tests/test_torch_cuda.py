@@ -283,3 +283,37 @@ def test_wrappers_reject_bad_cuda_inputs(dev):
         fit_cuda.apply_sweep(pts, state.cpu(), tab, trash, False)
     with pytest.raises(TypeError):      # not float32
         fit_cuda.apply_sweep(pts.double(), state, tab, trash, False)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fusion_on_cuda_equals_cpu(dev, seed):
+    from patchwork_tpu_torch.fusion.fusion import LidarFusion
+    from patchwork_tpu_torch.io.synthetic import (
+        fused_iac_cloud, iac_three_lidar_scene)
+
+    clouds = iac_three_lidar_scene(20000, seed=seed)
+    g, c = LidarFusion(device=dev).fuse(clouds), LidarFusion().fuse(clouds)
+    assert g.xyz.is_cuda
+    assert _equal(g.xyz.cpu(), c.xyz) and torch.equal(g.valid.cpu(), c.valid)
+    np.testing.assert_array_equal(fused_iac_cloud(60000, seed, device=dev),
+                                  fused_iac_cloud(60000, seed))
+
+
+def test_bev_images_on_cuda_equal_cpu(dev):
+    from patchwork_tpu_torch.viz import bev
+
+    rng = np.random.default_rng(3)
+    xyz = np.column_stack([rng.uniform(-200, 200, 50000),
+                           rng.uniform(-100, 100, 50000),
+                           rng.uniform(-4, 4, 50000)]).astype(np.float32)
+    xyz[:4, :2] = [[-150.0, -75.0], [149.99, 74.99], [150.0, 0.0], [np.nan, 0]]
+    mask = rng.random(50000) > 0.3
+    ground = mask & (np.arange(50000) % 2 == 0)
+    c = [torch.from_numpy(a) for a in (xyz, mask, ground, mask & ~ground)]
+    g = [t.to(dev) for t in c]
+    for fn, args in ((bev.bev_height_image, (0, 1)),
+                     (bev.bev_enhanced_image, (0, 1)),
+                     (bev.bev_ground_nonground_image, (0, 2, 3))):
+        img_g = fn(*(g[i] for i in args))
+        assert img_g.is_cuda
+        assert torch.equal(img_g.cpu(), fn(*(c[i] for i in args)))
