@@ -8,7 +8,15 @@ Phases, one line each:
   2. build: compile the kernels of patchwork_tpu_torch/csrc with nvcc;
   3. kernels: every kernel wrapper against its plain PyTorch version, on the
      inputs the main path gives it (captured from runs of the slice: the
-     level path, the "pallas" segment ops and the generic engine's fit);
+     level path, the "pallas" segment ops and the generic engine's fit),
+     with its bound (the least time the card could take: bytes over
+     3.35 TB/s or float32 operations over 67 TFLOP/s) and, where one PyTorch
+     call computes the same function, that call's time; then the two
+     redesigned kernels: the sweep plan against its plain version, the
+     apply sweep with a shared plan on velodyne, split terrain and a
+     shuffled cloud at Sp 128 and 256, and fit_level at B = 1, 3, 8, each
+     scan against its solo run, a max_iter exit beside a convergence exit,
+     every one run twice with equal bits;
   4. slice: filter_ground_batched on B=8 x 131072 velodyne-like scans and
      on B=8 x 131072 split-terrain scans (whose patches recurse), exact and
      fast mode, through the kernels: exact masks equal the plain path's bit
@@ -66,6 +74,11 @@ HARD_POINTS = 65536
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3   # float sums; the design adds in one order
 IOU_FAST_MIN = 0.999
 IOU_EVAL_TOL = 0.001
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s off the tensor cores
+PEAK_BYTES_S, PEAK_FLOPS = 3.35e12, 67e12
+# float32 operations per point of one sweep, counted from the expressions
+APPLY_FLOPS = {False: 31, True: 43}
+M2_FLOPS = 19
 
 
 def split_terrain_cloud(n: int, seed: int):
@@ -84,6 +97,14 @@ def split_terrain_cloud(n: int, seed: int):
     obst = rng.uniform(-40, 40, (n_obst, 2))
     oz = rng.uniform(0.5, 3.0, n_obst)
     return np.concatenate([g, np.column_stack([obst, oz])]).astype(np.float32)
+
+
+T0 = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """Seconds since the script started, at the start of a phase."""
+    print(f"[{phase}] starts at {time.perf_counter() - T0:.1f} s", flush=True)
 
 
 class Failures:
@@ -122,6 +143,178 @@ def _abs_err(a, b) -> float:
     same = (a == b) | (torch.isnan(a) & torch.isnan(b))
     d = torch.where(same, torch.zeros_like(a), (a - b).abs())
     return float(d.max().item()) if d.numel() else 0.0
+
+
+def _nbytes(*xs) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(xs))
+
+
+def kernel_bound(name, args, kw, out, sweeps):
+    """(bound_ms, bound_by, bytes, flops) of one call: every input read
+    once and every output written once over the card's memory rate, against
+    the float32 operations the inputs ask for over its peak rate.  ``sweeps``
+    is the (apply, moments2) sweep count of a level call, or per scan the
+    apply sweeps of a fit_level call: the work this run's data needed."""
+    if name in ("apply_sweep", "moments2_sweep"):
+        pts, state, tab = args[:3]
+        b, _, n = pts.shape
+        fast = name == "apply_sweep" and bool(args[4])
+        # x, y, z, mask and node id read per point; the apply sweep writes
+        # the mask back
+        per_point = 24 if name == "apply_sweep" else 20
+        byts = b * n * per_point + _nbytes(tab, out)
+        flops = b * n * (APPLY_FLOPS[fast] if name == "apply_sweep"
+                         else M2_FLOPS)
+    elif name == "fit_level":
+        p, g0 = args[:2]
+        b, _, n = p.shape
+        fast = bool(kw.get("fast", False))
+        byts = _nbytes(p, g0, out)
+        flops = sum(n * (k * APPLY_FLOPS[fast]
+                         + (0 if fast else (k - 1) * M2_FLOPS))
+                    for k in sweeps)
+    elif name == "level":
+        pts, tables = args[:2]
+        b, _, n = pts.shape
+        fast = bool(kw.get("fast", False))
+        byts = _nbytes(pts, tables, out)
+        flops = b * n * (sweeps[0] * APPLY_FLOPS[fast] + sweeps[1] * M2_FLOPS
+                         + 60)
+    elif name == "seg_sum":
+        rows, seg = args[:2]
+        byts, flops = _nbytes(rows, seg, out), rows.numel()
+    elif name == "seg_order_stat":
+        byts, flops = _nbytes(args[:4], out), 20 * args[0].numel()
+    elif name == "seg_gather":
+        byts, flops = _nbytes(args, out), args[1].numel()
+    elif name == "seg_minmax":
+        byts, flops = _nbytes(args[:3], out), 2 * args[0].numel()
+    else:
+        raise ValueError(name)
+    t_bytes, t_flops = byts / PEAK_BYTES_S, flops / PEAK_FLOPS
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations", byts, flops)
+
+
+def library_ms(name, args):
+    """Time of the one PyTorch call that computes the same function on the
+    same inputs (prepared outside the timing), or None.  A yardstick only:
+    the port never calls it.  ``index_add_`` adds with float atomics in no
+    fixed order, so it is a yardstick of speed, not of the bits."""
+    import torch
+
+    if name == "seg_sum":
+        rows, seg, num_segs = args
+        b, r, n = rows.shape
+        src = rows.permute(0, 2, 1).reshape(b * n, r).contiguous()
+        idx = (seg.long() + num_segs * torch.arange(
+            b, device=seg.device)[:, None]).reshape(-1)
+        out = torch.zeros((b * num_segs, r), device=rows.device)
+        return _time_ms(lambda: out.index_add_(0, idx, src), (), {}, 20)
+    if name == "seg_gather":
+        table, seg = args
+        idx = seg.long()[:, None, :].expand(-1, table.shape[1], -1)
+        return _time_ms(lambda: torch.gather(table, 2, idx), (), {}, 20)
+    return None
+
+
+def redesigned_kernel_checks(dev, fails, sweep_inputs, fit_inputs) -> None:
+    """Phase 3's checks of the sweep plan, the planned apply sweep and the
+    co-operative fit_level (see the module docstring).  ``sweep_inputs``:
+    label -> apply_sweep arguments captured from the main path;
+    ``fit_inputs``: mode -> fit_level arguments."""
+    import torch
+    from patchwork_tpu_torch.kernels import fit_cuda
+
+    def same(a, b):
+        return all(torch.equal(x.view(torch.int32) if x.is_floating_point()
+                               else x, y.view(torch.int32)
+                               if y.is_floating_point() else y)
+                   for x, y in zip(_tensors(a), _tensors(b)))
+
+    for label, a in sorted(sweep_inputs.items()):
+        pts, state, tab, trash = a[:4]
+        sp = tab.shape[2]
+        plan = fit_cuda.sweep_plan(state, sp)
+        again = fit_cuda.sweep_plan(state, sp)
+        want = fit_cuda.sweep_plan_plain(state, sp)
+        ok_plan = (same(plan.tensors(), want.tensors())
+                   and same(plan.tensors(), again.tensors()))
+        nodes = float(plan.tile_off[:, -1].float().mean()) / (
+            pts.shape[2] // fit_cuda.TILE)
+        t_plan = _time_ms(fit_cuda.sweep_plan, (state, sp), {}, 10)
+        line = []
+        for fast in (False, True):
+            runs = []
+            for _ in range(2):
+                st = state.clone()
+                runs.append((fit_cuda.apply_sweep(pts, st, tab, trash, fast,
+                                                  plan), st))
+            st = state.clone()
+            ref = (fit_cuda.apply_sweep_plain(pts, st, tab, trash, fast), st)
+            torch.cuda.synchronize()
+            ok = same(runs[0], ref) and same(runs[0], runs[1])
+            ms = _time_ms(fit_cuda.apply_sweep,
+                          (pts, state, tab, trash, fast, plan), {}, 20)
+            line.append(f"{'fast' if fast else 'exact'} {ms:.3f} ms "
+                        f"{'ok' if ok else 'MISMATCH'}")
+            fails.check(ok, f"apply_sweep with a shared plan, {label} "
+                            f"{'fast' if fast else 'exact'}: differs from its "
+                            "plain version or between two runs")
+        print(f"[3 redesigned] apply_sweep {label} B={pts.shape[0]} "
+              f"N={pts.shape[2]} Sp={sp}, {nodes:.2f} nodes per tile: plan "
+              f"{'ok' if ok_plan else 'MISMATCH'} ({t_plan:.3f} ms), "
+              + ", ".join(line), flush=True)
+        fails.check(ok_plan, f"sweep plan, {label}: differs from its plain "
+                             "version or between two runs")
+
+    for mode, (args, kw) in sorted(fit_inputs.items()):
+        p, g0, num_segs, max_iter = args
+        fast = kw["fast"]
+        n = p.shape[2]
+        blocks = {b: fit_cuda.fit_level_blocks(b, n, num_segs, fast)
+                  for b in (1, 3, 8)}
+        print(f"[3 redesigned] fit_level {mode} N={n}: one co-operative "
+              f"launch, blocks per scan {blocks}", flush=True)
+        for b in (1, 3, 8):
+            pb, gb = p[:b].contiguous(), g0[:b].contiguous()
+            for mi in (max_iter, 2):
+                sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+                got = fit_cuda.fit_level(pb, gb, num_segs, mi, fast=fast,
+                                         sweeps_out=sweeps)
+                again = fit_cuda.fit_level(pb, gb, num_segs, mi, fast=fast)
+                # the batch of 8 at the full max_iter was held to the plain
+                # version above, as the family's own entry
+                want = got if (b, mi) == (8, max_iter) else \
+                    fit_cuda.fit_level_plain(pb, gb, num_segs, mi, fast)
+                torch.cuda.synchronize()
+                ok = same(got, want) and same(got, again)
+                solo = b == 8 and all(
+                    same(fit_cuda.fit_level(pb[i:i + 1].contiguous(),
+                                            gb[i:i + 1].contiguous(),
+                                            num_segs, mi, fast=fast),
+                         (got[0][i:i + 1], got[1][i:i + 1]))
+                    for i in range(b))
+                exits = ["max_iter" if k == mi + 2 else "converged"
+                         for k in sweeps.tolist()]
+                print(f"[3 redesigned] fit_level {mode} B={b} max_iter {mi}: "
+                      f"sweeps per scan {sweeps.tolist()} ({exits.count('max_iter')}"
+                      f" max_iter exits), vs plain and run twice "
+                      f"{'ok' if ok else 'MISMATCH'}"
+                      + (f", each scan alone {'ok' if solo else 'MISMATCH'}"
+                         if b == 8 else ""), flush=True)
+                fails.check(ok, f"fit_level {mode} B={b} max_iter {mi}: "
+                                "differs from its plain version or between "
+                                "two runs")
+                if b == 8:
+                    fails.check(solo, f"fit_level {mode} max_iter {mi}: a "
+                                      "scan alone differs from the batch")
+        if mode == "exact":
+            got = fit_cuda.fit_level(p, g0, num_segs, 2, fast=fast)[0]
+            fails.check(not torch.equal(
+                got, fit_cuda.fit_level(p, g0, num_segs, max_iter,
+                                        fast=fast)[0]),
+                "fit_level: the max_iter exit equals the convergence exit")
 
 
 class Capture:
@@ -169,29 +362,30 @@ def level_path(engine, fn, *args, **kwargs):
 
 
 def _time_ms(fn, args, kwargs, reps: int) -> float:
-    """Mean CUDA-event time of fn over reps calls on fresh input clones."""
+    """Mean CUDA-event time of fn over reps back-to-back calls, each on its
+    own clone of the inputs (a sweep updates its inputs in place)."""
     import torch
 
-    total = 0.0
-    for _ in range(reps):
-        a = _clone(args)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    clones = [_clone(args) for _ in range(reps)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for a in clones:
         fn(*a, **kwargs)
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
-def scans_per_s(xyz, valid, cfg, plain, reps):
-    """Scans/s of filter_ground_batched over ``reps`` calls after a warm-up
-    (CUDA events)."""
+def scans_per_s(xyz, valid, cfg, plain, reps, warm=True):
+    """Scans/s of filter_ground_batched over ``reps`` calls (CUDA events),
+    after a warm-up call unless the path has run before."""
     import torch
     from patchwork_tpu_torch import filter_ground_batched
 
-    filter_ground_batched(xyz, valid, cfg, plain=plain)   # warm-up
+    if warm:
+        filter_ground_batched(xyz, valid, cfg, plain=plain)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -513,6 +707,7 @@ def main() -> int:
     velo_big = batch(velodyne128, range(B), N_BIG)
 
     # ---- 3. kernels vs plain versions, on the main path's inputs ----
+    stamp("3 kernels")
     members = ["seg_order_stat", "seg_sum", "apply_sweep", "moments2_sweep",
                "remap_r1", "remap_r1b", "remap_nodes", "remap_points",
                "node_stats", "early_outs", "deficient_round", "seed_init",
@@ -564,12 +759,32 @@ def main() -> int:
             captured[(name + "/fit", mode)] = ((name, fit_cuda)
                                                + cap_f.saved[name])
 
+    # the apply sweep's inputs per scene for the redesigned kernels' checks
+    cap_v = Capture(fit_cuda, ["apply_sweep"], {"apply_sweep": 5})
+    try:
+        filter_ground_batched(*velo, cfg_exact)
+    finally:
+        cap_v.restore()
+    velo_sweep = cap_v.saved["apply_sweep"][0]
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(0)).to(dev)
+    sweep_inputs = {
+        "velodyne": velo_sweep,
+        "velodyne shuffled": (velo_sweep[0][:, :, perm].contiguous(),
+                              velo_sweep[1][:, :, perm].contiguous())
+        + tuple(velo_sweep[2:]),
+        "split terrain": captured[("apply_sweep", "exact")][2],
+        "split terrain, generic fit": captured[("apply_sweep/fit",
+                                                "exact")][2]}
+
     exact_only = {"seg_order_stat", "remap_nodes", "remap_points",
                   "node_stats", "early_outs", "deficient_round",
                   "finish_nodes", "seg_gather", "seg_minmax"}
     err = {f: 0.0 for f in set(family_of.values())}
     ms = {f: 0.0 for f in err}
     plain_ms = {f: 0.0 for f in err}
+    bound = {}      # family -> (bound_ms, bound_by, bytes, flops)
+    lib_ms = {}
+    extra = {}      # family -> further keys of its JSON entry
     for (label, mode), (name, module, args, kw) in sorted(captured.items()):
         if name == "level":
             fn_k, fn_p = engine.level, engine.level_reference
@@ -577,8 +792,14 @@ def main() -> int:
             fn_k = getattr(module, name)
             fn_p = getattr(module.plain, name)
         ak, ap = _clone(args), _clone(args)
-        out_k, out_p = fn_k(*ak, **kw), fn_p(*ap, **kw)
-        torch.cuda.synchronize()
+        out_plain = []
+        before = dict(fit_cuda.LAUNCHES)
+        out_k = fn_k(*ak, **kw)
+        sweeps = (fit_cuda.LAUNCHES["apply_sweep"] - before["apply_sweep"],
+                  fit_cuda.LAUNCHES["moments2_sweep"]
+                  - before["moments2_sweep"])
+        t_p = _time_ms(lambda: out_plain.append(fn_p(*ap, **kw)), (), {}, 1)
+        out_p = out_plain.pop()
         tk, tp = _tensors((out_k, ak)), _tensors((out_p, ap))
         if name == "seg_order_stat":
             # garbage by contract where k >= count: compare the rest
@@ -613,15 +834,33 @@ def main() -> int:
         err[fam] = max(err[fam], e)
         slow = name in ("level", "fit_level")
         t_k = _time_ms(fn_k, args, kw, 3 if slow else 20)
-        t_p = _time_ms(fn_p, args, kw, 1 if name == "fit_level"
-                       else 2 if slow else 3)
+        if not slow:    # the slow plain versions are timed on their one run
+            t_p = _time_ms(fn_p, args, kw, 3)
+        tail = ""
         if label in ms and mode == "exact":   # the family's own entry point
             ms[label], plain_ms[label] = t_k, t_p
+            if name == "fit_level":
+                per_scan = torch.zeros(args[0].shape[0], dtype=torch.int32,
+                                       device=dev)
+                fn_k(*_clone(args), sweeps_out=per_scan, **kw)
+                sweeps = per_scan.tolist()
+                extra[label] = {"sweeps_per_scan": sweeps}
+            bound[label] = kernel_bound(name, args, kw, out_k, sweeps)
+            lib_ms[label] = library_ms(name, args)
+            tail = (f" bound {bound[label][0]:.4f} ms by {bound[label][1]} "
+                    f"({bound[label][2]} B, {bound[label][3]} flop)"
+                    + (f" library {lib_ms[label]:.3f} ms"
+                       if lib_ms[label] is not None else ""))
         print(f"[3 kernels] {label:19s} {mode:5s} max_abs_err {e:.3g} "
-              f"kernel {t_k:.3f} ms plain {t_p:.3f} ms "
+              f"kernel {t_k:.3f} ms plain {t_p:.3f} ms{tail} "
               f"{'ok' if fine else 'MISMATCH'}", flush=True)
         fails.check(fine, f"kernel {label} ({mode}) disagrees with its plain "
                           f"version (max_abs_err {e})")
+
+    stamp("3 redesigned")
+    redesigned_kernel_checks(
+        dev, fails, sweep_inputs,
+        {mode: captured[("fit_level", mode)][2:] for mode in ("exact", "fast")})
 
     # kernel 5 against the loop of sweeps it stands for, on the same level-0
     # fit (the loop is exact two-pass in both modes; fit_level honours fast)
@@ -644,11 +883,17 @@ def main() -> int:
                                 f"by {d} mask bits")
 
     # ---- 4. the slice through the kernels ----
+    stamp("4 slice")
     fit_cuda.reset_launches()
     masks = {}
     for scene, (xyz, valid) in (("velodyne", velo), ("split", split)):
         for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
+            before = dict(fit_cuda.LAUNCHES)
             g1 = filter_ground_batched(xyz, valid, cfg).ground
+            print(f"[4 slice] {scene} {mode} B={B} N={N}: launches of one "
+                  f"batch", {k: v - before[k] for k, v in
+                             fit_cuda.LAUNCHES.items() if v > before[k]},
+                  flush=True)
             g2 = filter_ground_batched(xyz, valid, cfg).ground
             masks[(scene, mode)] = g1
             fails.check(torch.equal(g1, g2),
@@ -679,6 +924,8 @@ def main() -> int:
     for scene, data in (("velodyne128", velo_gen), ("split", split_gen)):
         for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
             gen[(scene, mode)], d = counted(data, cfg)
+            print(f"[4 generic] {scene} {mode} B={B} N={N_GEN}: launches of "
+                  f"one batch", {k: v for k, v in d.items() if v}, flush=True)
             fails.check(d["level path"] == 0 and d["fit_level"] > 0,
                         f"{scene} {mode} N={N_GEN}: not the generic path "
                         f"with fit_level {d}")
@@ -775,6 +1022,7 @@ def main() -> int:
                     f"kernel family {fam} never launched on the generic path")
 
     # ---- 5. quality on the hard labeled scenes ----
+    stamp("5 quality")
     with open(os.path.join(ROOT, "EVAL_r05.json")) as f:
         ref = json.load(f)["scenes"]
     for name in HARD_SCENES:
@@ -796,9 +1044,10 @@ def main() -> int:
         print(f"[5 quality] {name}: " + ", ".join(line), flush=True)
 
     # ---- 6. timing ----
+    stamp("6 timing")
     for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
         rk = scans_per_s(*velo, cfg, False, 10)
-        rp = scans_per_s(*velo, cfg, True, 1)
+        rp = scans_per_s(*velo, cfg, True, 1, warm=False)   # ran in phase 4
         print(f"[6 timing] velodyne B={B} N={N} {mode}: kernel path "
               f"{rk:.1f} scans/s, plain path {rp:.2f} scans/s on {card}",
               flush=True)
@@ -812,6 +1061,7 @@ def main() -> int:
               f"{card}", flush=True)
 
     # ---- 7. front ends ----
+    stamp("7 front ends")
     launches_front = phase7(dev, card, fails)
     launches = {k: launches[k] + launches_front[k] for k in launches}
 
@@ -833,10 +1083,13 @@ def main() -> int:
         ("seg_gather", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:112"),
         ("seg_minmax", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:165"),
     ]
+    stamp("results")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,
          "replaces": rep, "launches": launches[name],
-         "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name]}
+         "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bound[name][0], "bound_by": bound[name][1],
+         "library_ms": lib_ms[name], **extra.get(name, {})}
         for name, f, rep in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

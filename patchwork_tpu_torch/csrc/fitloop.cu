@@ -1,4 +1,4 @@
-// One level's whole plane-fit loop in one launch.
+// One level's whole plane-fit loop in one launch, across the whole card.
 //
 // Replaces patchwork_tpu/kernels/fit_pallas.py fit_level_megakernel ->
 // _mega_kernel (399-514, wrapper 523-560): a moments sweep of the seeded
@@ -14,226 +14,348 @@
 // distsum (old mask), changed, 0, 0].
 //
 // The TPU keeps the whole cloud in VMEM and sums with bf16x3 one-hot
-// matmuls.  Here one block of PW_FIT_GROUPS x PW_TILE threads owns one scan
-// and loops on the device, so a level's fit is one launch with no host read
-// per iteration.  The points stay in device memory (the L2 holds a batch of
-// packed scans); the per-node sums, the centered moments and the plane table
-// live in shared memory.  Sums keep the sweeps' order: a tile of PW_TILE
-// points is summed per node in point order, and tile partials are added to
-// the running sums in tile order (PW_FIT_GROUPS tiles are staged at once;
-// their partials are added group by group).  So the kernel equals
-// fit_cuda.fit_level_plain bit for bit, and the fit equals the level path's
-// on the same nodes.  What bounds it: one block per scan leaves most SMs idle
-// at small batches, and each staged tile costs PW_TILE shared-memory passes
-// of the threads that own its nodes.
+// matmuls on one core.  Here the loop is bound by latency, not by bytes: a
+// sweep moves 32 bytes a point, but up to 101 sweeps follow one another and
+// each needs every node's sums of the one before.  So every scan gets G
+// blocks of PW_TILE threads that are resident together (a co-operative
+// launch, G = the card's co-resident blocks / B, at most one per tile) and
+// loop on the device, with one barrier per scan in device memory between
+// the phases of a sweep: no host read, and each scan leaves the loop on its
+// own.  A co-operative launch with per-scan barriers was taken over a
+// thread-block cluster per scan because a cluster holds at most 16 blocks,
+// which leaves 116 of 132 SMs idle at B = 1, while the barrier serves any G.
+//
+// A block owns a contiguous range of tiles for the whole launch, so a
+// point's mask is read and written by one thread only.  The sweep plan
+// (tile_sums.cuh) is built in the kernel, the node ids being fixed.  Per
+// sweep each block writes its tiles' compact partials (they stay in the
+// L2, a node's next to each other); after the barrier node s, owned by
+// block s % G, gets its chain in tile order, its centroid and normal (one
+// acosf per node and table, by the
+// owner only) and its table row; after the next barrier every block reads
+// the table into shared memory and sweeps again.  Sums keep the sweeps'
+// order, so the kernel equals fit_cuda.fit_level_plain bit for bit, run
+// after run, and a scan's result does not depend on the batch it is in.
+//
+// What one block writes and another reads (partials, table, flag, plan) is
+// read with __ldcg after a __threadfence and the barrier.
+//
+// A block walks its tiles in sequence with plain coalesced loads.  A ring of
+// tiles in shared memory filled by asynchronous copies (the next tile in
+// flight during the sums of the one before, a share of one or two tiles
+// kept for the whole launch) was built and measured: the exact fit got
+// slower under this kernel's 48-register cap and the fast fit gained 3-6 %,
+// so it was not kept.  The barriers, the chains and the in-order runs bound
+// an iteration, not the loads.
 #include "common.cuh"
+#include "tile_sums.cuh"
 
-#define PW_FIT_GROUPS 4
-#define PW_FIT_THREADS (PW_FIT_GROUPS * PW_TILE)
+struct PwFitArgs {
+  const float* p;
+  const float* g0;
+  float* g;
+  float* stats;
+  PwPlan plan;
+  float* partial;   // (B, cap, R) compact tile partials
+  float* tab;       // (B, 7, sp) [cx, cy, cz, nx, ny, nz, gcnt >= 3]
+  int* flag;        // (B,) number of the last sweep that changed the mask
+  int* bar;         // (B,) arrivals at the scan's barrier, zeroed
+  int* sweeps;      // (B,) out: apply sweeps the scan ran
+  int N, sp, cap, max_iter, G;
+};
 
-// Add the staged tiles' per-node sums to acc (R, sp), tiles in order.  Group
-// g of the block staged tile g of the step; `live` groups hold points.
-template <int R>
-__device__ __forceinline__ void pw_fit_accumulate(const float* vals,
-                                                  const int* segs, float* acc,
-                                                  int sp, int live) {
-  int grp = threadIdx.x / PW_TILE, lane = threadIdx.x % PW_TILE;
-  const float* V = vals + grp * R * PW_TILE;
-  const int* Sg = segs + grp * PW_TILE;
-  for (int base = 0; base < sp; base += PW_TILE) {
-    int s = base + lane;
-    bool mine = s < sp && grp < live;
-    float a[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) a[r] = 0.f;
-    if (mine) {
-      for (int t = 0; t < PW_TILE; ++t) {
-        if (Sg[t] == s) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) a[r] += V[r * PW_TILE + t];
-        }
-      }
+// Barrier over the G blocks of one scan: arrivals only grow, the k-th
+// barrier waits for k * G of them.
+__device__ __forceinline__ void pw_scan_barrier(int* bar, int G, int* epoch) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int target = ++*epoch * G;
+    __threadfence();
+    atomicAdd(bar, 1);
+    while (*(volatile int*)bar < target) {
     }
-    for (int g = 0; g < PW_FIT_GROUPS; ++g) {
-      if (grp == g && mine) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r * sp + s] += a[r];
-      }
-      __syncthreads();
-    }
+    __threadfence();
   }
+  __syncthreads();
 }
 
-// Apply sweep with the plane table tab (7, sp) [cx, cy, cz, nx, ny, nz, can]
+// What a block keeps of its scan.
+struct PwFitBlock {
+  const float* P;   // the scan's points
+  float* Gm;        // the scan's mask
+  PwPlan pl;
+  float* part;      // the scan's partials
+  float* tabg;      // the scan's table in device memory
+  float* vals;      // shared: R * PW_TILE staged rows
+  float* tab;       // shared: (7, sp)
+  int* sstart;      // shared: PW_TILE + 1
+  int* sdest;       // shared: PW_TILE
+  int t0, t1;       // its tiles
+  int g, G, nloc;   // its nodes are g + q * G, q < nloc
+  int N, sp;
+};
+
+// Apply sweep over the block's tiles with the table in shared memory
 // (_mega_kernel's `sweep`, fit_pallas.py:405-443): re-threshold where
-// amask * can, write the mask, sum the rows per node into acc (R, sp).
+// amask * can, write the mask, write the tiles' compact partials.
 template <bool FAST>
-__device__ void pw_fit_apply(const float* __restrict__ P, float* __restrict__ G,
-                             const float* tab, float* vals, int* segs,
-                             float* acc, int N, int sp) {
+__device__ void pw_fit_apply(const PwFitBlock& k, bool with_can) {
   constexpr int R = FAST ? 12 : 6;
-  int grp = threadIdx.x / PW_TILE, lane = threadIdx.x % PW_TILE;
-  for (int j = threadIdx.x; j < R * sp; j += blockDim.x) acc[j] = 0.f;
-  for (int t0 = 0; t0 < N; t0 += PW_FIT_THREADS) {
-    int live = min(PW_FIT_GROUPS, (N - t0) / PW_TILE);
-    if (grp < live) {
-      int i = t0 + threadIdx.x;
-      float x = P[i], y = P[(size_t)N + i], z = P[2 * (size_t)N + i];
-      float tau = P[3 * (size_t)N + i], am = P[4 * (size_t)N + i];
-      int s = (int)P[5 * (size_t)N + i];
-      float g = G[i];
-      float dx = x - tab[s], dy = y - tab[sp + s], dz = z - tab[2 * sp + s];
-      float dist = fabsf(dx * tab[3 * sp + s] + dy * tab[4 * sp + s] +
-                         dz * tab[5 * sp + s]);
-      float apply_m = am * tab[6 * sp + s];
-      float new_g = dist < tau ? 1.f : 0.f;
-      float g2 = apply_m * new_g + (1.f - apply_m) * g;
-      G[i] = g2;
-      float xg = x * g2, yg = y * g2, zg = z * g2;
-      float* V = vals + grp * R * PW_TILE;
-      V[lane] = g2;
-      V[PW_TILE + lane] = xg;
-      V[2 * PW_TILE + lane] = yg;
-      V[3 * PW_TILE + lane] = zg;
-      V[4 * PW_TILE + lane] = dist * g;
-      V[5 * PW_TILE + lane] = apply_m * fabsf(new_g - g);
-      if constexpr (FAST) {
-        V[6 * PW_TILE + lane] = x * xg;
-        V[7 * PW_TILE + lane] = y * xg;
-        V[8 * PW_TILE + lane] = z * xg;
-        V[9 * PW_TILE + lane] = y * yg;
-        V[10 * PW_TILE + lane] = z * yg;
-        V[11 * PW_TILE + lane] = z * zg;
-      }
-      segs[grp * PW_TILE + lane] = s;
+  int N = k.N, sp = k.sp;
+  const float* P = k.P;
+  const float* tab = k.tab;
+  for (int tile = k.t0; tile < k.t1; ++tile) {
+    size_t i = (size_t)tile * PW_TILE + threadIdx.x;
+    int K = pw_tile_runs(tile, k.pl, k.sstart, k.sdest);
+    float x = P[i], y = P[(size_t)N + i], z = P[2 * (size_t)N + i];
+    float tau = P[3 * (size_t)N + i], am = P[4 * (size_t)N + i];
+    int s = (int)P[5 * (size_t)N + i];
+    float g = k.Gm[i];
+    float dx = x - tab[s], dy = y - tab[sp + s], dz = z - tab[2 * sp + s];
+    float dist = fabsf(dx * tab[3 * sp + s] + dy * tab[4 * sp + s] +
+                       dz * tab[5 * sp + s]);
+    float apply_m = am * (with_can ? tab[6 * sp + s] : 0.f);
+    float new_g = dist < tau ? 1.f : 0.f;
+    float g2 = apply_m * new_g + (1.f - apply_m) * g;
+    k.Gm[i] = g2;
+    float xg = x * g2, yg = y * g2, zg = z * g2;
+    float v[R];
+    v[0] = g2;
+    v[1] = xg;
+    v[2] = yg;
+    v[3] = zg;
+    v[4] = dist * g;
+    v[5] = apply_m * fabsf(new_g - g);
+    if constexpr (FAST) {
+      v[6] = x * xg;
+      v[7] = y * xg;
+      v[8] = z * xg;
+      v[9] = y * yg;
+      v[10] = z * yg;
+      v[11] = z * zg;
     }
-    __syncthreads();
-    pw_fit_accumulate<R>(vals, segs, acc, sp, live);
+    pw_tile_compact_sums<R>(k.vals, k.sstart, k.sdest, v,
+                            (int)__ldcg(k.pl.pos + i), K, k.part);
   }
 }
 
 // Centered second moments of the mask about the centroids tab[0:3]
-// (_mega_kernel's `m2_sweep`, fit_pallas.py:445-467) into acc (6, sp).
-__device__ void pw_fit_m2(const float* __restrict__ P,
-                          const float* __restrict__ G, const float* tab,
-                          float* vals, int* segs, float* acc, int N, int sp) {
-  int grp = threadIdx.x / PW_TILE, lane = threadIdx.x % PW_TILE;
-  for (int j = threadIdx.x; j < 6 * sp; j += blockDim.x) acc[j] = 0.f;
-  for (int t0 = 0; t0 < N; t0 += PW_FIT_THREADS) {
-    int live = min(PW_FIT_GROUPS, (N - t0) / PW_TILE);
-    if (grp < live) {
-      int i = t0 + threadIdx.x;
-      int s = (int)P[5 * (size_t)N + i];
-      float g = G[i];
-      float dx = (P[i] - tab[s]) * g;
-      float dy = (P[(size_t)N + i] - tab[sp + s]) * g;
-      float dz = (P[2 * (size_t)N + i] - tab[2 * sp + s]) * g;
-      float* V = vals + grp * 6 * PW_TILE;
-      V[lane] = dx * dx;
-      V[PW_TILE + lane] = dx * dy;
-      V[2 * PW_TILE + lane] = dx * dz;
-      V[3 * PW_TILE + lane] = dy * dy;
-      V[4 * PW_TILE + lane] = dy * dz;
-      V[5 * PW_TILE + lane] = dz * dz;
-      segs[grp * PW_TILE + lane] = s;
-    }
-    __syncthreads();
-    pw_fit_accumulate<6>(vals, segs, acc, sp, live);
+// (_mega_kernel's `m2_sweep`, fit_pallas.py:445-467), as compact partials.
+__device__ void pw_fit_m2(const PwFitBlock& k) {
+  int N = k.N, sp = k.sp;
+  const float* P = k.P;
+  const float* tab = k.tab;
+  for (int tile = k.t0; tile < k.t1; ++tile) {
+    size_t i = (size_t)tile * PW_TILE + threadIdx.x;
+    int K = pw_tile_runs(tile, k.pl, k.sstart, k.sdest);
+    int s = (int)P[5 * (size_t)N + i];
+    float g = k.Gm[i];
+    float dx = (P[i] - tab[s]) * g;
+    float dy = (P[(size_t)N + i] - tab[sp + s]) * g;
+    float dz = (P[2 * (size_t)N + i] - tab[2 * sp + s]) * g;
+    float v[6] = {dx * dx, dx * dy, dx * dz, dy * dy, dy * dz, dz * dz};
+    pw_tile_compact_sums<6>(k.vals, k.sstart, k.sdest, v,
+                            (int)__ldcg(k.pl.pos + i), K, k.part);
   }
 }
 
-// make_tab (fit_pallas.py:472-485): the plane table of the sums m1.
-template <bool FAST>
-__device__ void pw_fit_table(const float* __restrict__ P,
-                             const float* __restrict__ G, const float* m1,
-                             float* m2, float* tab, float* vals, int* segs,
-                             int N, int sp, bool with_can) {
-  for (int s = threadIdx.x; s < sp; s += blockDim.x) {
-    float n = pw_clamp_lo(m1[s], 1.f);
-    tab[s] = m1[sp + s] / n;
-    tab[sp + s] = m1[2 * sp + s] / n;
-    tab[2 * sp + s] = m1[3 * sp + s] / n;
-  }
-  __syncthreads();
-  if constexpr (!FAST) pw_fit_m2(P, G, tab, vals, segs, m2, N, sp);
-  for (int s = threadIdx.x; s < sp; s += blockDim.x) {
-    float m[6];
-    if constexpr (FAST) {
-      pw_centered_m2(m1, sp, s, m);
-    } else {
-      for (int k = 0; k < 6; ++k) m[k] = m2[k * sp + s];
-    }
-    float gcnt = m1[s];
-    pw_normal(m, gcnt, &tab[3 * sp + s], &tab[4 * sp + s], &tab[5 * sp + s]);
-    tab[6 * sp + s] = (with_can && gcnt >= 3.f) ? 1.f : 0.f;
+// The chains of the block's nodes over RC rows of the partials into dst
+// (nloc, RC) in shared memory.  Ends with a barrier of the block.
+template <int RC>
+__device__ void pw_fit_chains(const PwFitBlock& k, float* dst) {
+  for (int j = threadIdx.x; j < k.nloc * RC; j += PW_TILE) {
+    int q = j / RC, r = j - q * RC;
+    int s = k.g + q * k.G;
+    dst[j] = pw_chain(k.part, __ldcg(k.pl.node_off + s),
+                      __ldcg(k.pl.node_off + s + 1), RC, r);
   }
   __syncthreads();
 }
 
+// Rows [r0, r1) of the scan's table into the block's copy in shared memory.
+__device__ void pw_fit_read_table(const PwFitBlock& k, int r0, int r1) {
+  for (int j = r0 * k.sp + threadIdx.x; j < r1 * k.sp; j += PW_TILE)
+    k.tab[j] = __ldcg(k.tabg + j);
+}
+
 template <bool FAST>
-__global__ void __launch_bounds__(PW_FIT_THREADS, 1)
-    pw_fit_level_kernel(const float* __restrict__ p,
-                        const float* __restrict__ g0, float* __restrict__ g,
-                        float* __restrict__ stats, int N, int sp,
-                        int max_iter) {
+__global__ void __launch_bounds__(PW_TILE, 5)
+    pw_fit_level_kernel(PwFitArgs a) {
   constexpr int R = FAST ? 12 : 6;
   extern __shared__ float sh[];
-  float* vals = sh;                                            // (G, R, TILE)
-  int* segs = (int*)(vals + PW_FIT_GROUPS * R * PW_TILE);      // (G, TILE)
-  float* m1 = (float*)(segs + PW_FIT_GROUPS * PW_TILE);        // (R, sp)
-  float* m2 = m1 + R * sp;                                     // (6, sp) exact
-  float* tab = m2 + (FAST ? 0 : 6 * sp);                       // (7, sp)
-  int b = blockIdx.x;
-  const float* P = p + (size_t)b * 8 * N;
-  float* G = g + (size_t)b * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) G[i] = g0[(size_t)b * N + i];
-  for (int j = threadIdx.x; j < 7 * sp; j += blockDim.x) tab[j] = 0.f;
-  __syncthreads();
+  int N = a.N, sp = a.sp, G = a.G, nt = N / PW_TILE;
+  int b = blockIdx.x / G, g = blockIdx.x % G, t = threadIdx.x;
+  int nloc_max = (sp + G - 1) / G;
+  PwFitBlock k;
+  k.vals = sh;
+  k.tab = k.vals + R * PW_TILE;
+  float* m1s = k.tab + 7 * sp;               // (nloc, R) sums of the block's nodes
+  float* m2s = m1s + nloc_max * R;           // (nloc, 6), exact mode
+  k.sstart = (int*)(m2s + (FAST ? 0 : nloc_max * 6));
+  k.sdest = k.sstart + PW_TILE + 1;
+  int* iw = k.sdest + PW_TILE;               // PW_PLAN_SMEM_INTS
+  k.P = a.p + (size_t)b * 8 * N;
+  k.Gm = a.g + (size_t)b * N;
+  k.pl = pw_plan_scan_of(a.plan, b, N, sp, a.cap);
+  k.part = a.partial + (size_t)b * a.cap * R;
+  k.tabg = a.tab + (size_t)b * 7 * sp;
+  k.t0 = (int)((long long)g * nt / G);
+  k.t1 = (int)((long long)(g + 1) * nt / G);
+  k.g = g;
+  k.G = G;
+  k.nloc = g < sp ? (sp - g + G - 1) / G : 0;
+  k.N = N;
+  k.sp = sp;
+  int* bar = a.bar + b;
+  int* flag = a.flag + b;
+  int epoch = 0;
 
-  pw_fit_apply<FAST>(P, G, tab, vals, segs, m1, N, sp);  // seeded moments
-  int changed = 1;
-  for (int it = 0; changed && it < max_iter; ++it) {
-    pw_fit_table<FAST>(P, G, m1, m2, tab, vals, segs, N, sp, true);
-    pw_fit_apply<FAST>(P, G, tab, vals, segs, m1, N, sp);
-    int any = 0;
-    for (int s = threadIdx.x; s < sp; s += blockDim.x)
-      any |= m1[5 * sp + s] > 0.f;
-    changed = __syncthreads_or(any);
+  // the seeded mask and the plan of the block's tiles
+  const float* g0 = a.g0 + (size_t)b * N;
+  for (int tile = k.t0; tile < k.t1; ++tile) {
+    size_t i = (size_t)tile * PW_TILE + t;
+    k.Gm[i] = g0[i];
+    pw_plan_tile(k.P + 5 * (size_t)N, tile, nt, k.pl, iw);
   }
-  // final fit of the converged mask (can = 0): on a convergence exit its
-  // sums are bitwise those of the last sweep, so only max_iter needs it
-  if (changed) {
-    pw_fit_table<FAST>(P, G, m1, m2, tab, vals, segs, N, sp, false);
-    pw_fit_apply<FAST>(P, G, tab, vals, segs, m1, N, sp);
+  pw_scan_barrier(bar, G, &epoch);
+  if (g == 0) pw_plan_offsets(nt, sp, k.pl, iw);
+  pw_scan_barrier(bar, G, &epoch);
+  for (int tile = k.t0; tile < k.t1; ++tile)
+    pw_plan_places(tile, nt, k.pl);
+  for (int j = t; j < 7 * sp; j += PW_TILE) k.tab[j] = 0.f;
+  pw_scan_barrier(bar, G, &epoch);
+
+  // sweep 0 is the seeded moments (zero table, can = 0); then the loop of
+  // fit_pallas.py:487-514
+  bool with_can = false, last_fit = false;
+  int sweep = 0;
+  for (int it = 0;; ++sweep) {
+    pw_fit_apply<FAST>(k, with_can);
+    pw_scan_barrier(bar, G, &epoch);
+    // the block's nodes: sums, changed flag, centroid, gcnt >= 3 and, in
+    // fast mode, the normal (make_tab, fit_pallas.py:472-485)
+    pw_fit_chains<R>(k, m1s);
+    for (int q = t; q < k.nloc; q += PW_TILE) {
+      int s = g + q * G;
+      const float* m = m1s + q * R;
+      if (m[5] > 0.f) *(volatile int*)flag = sweep;
+      float n = pw_clamp_lo(m[0], 1.f);
+      k.tabg[s] = m[1] / n;
+      k.tabg[sp + s] = m[2] / n;
+      k.tabg[2 * sp + s] = m[3] / n;
+      k.tabg[6 * sp + s] = m[0] >= 3.f ? 1.f : 0.f;
+      if constexpr (FAST) {
+        float c[6];
+        pw_centered_m2(m, 1, 0, c);
+        pw_normal(c, m[0], &k.tabg[3 * sp + s], &k.tabg[4 * sp + s],
+                  &k.tabg[5 * sp + s]);
+      }
+    }
+    pw_scan_barrier(bar, G, &epoch);
+    if (last_fit) break;
+    bool changed = sweep == 0 || __ldcg(flag) == sweep;
+    if (!changed) break;
+    // a max_iter exit fits the mask once more with can = 0
+    with_can = it < a.max_iter;
+    last_fit = !with_can;
+    ++it;
+    if constexpr (FAST) {
+      pw_fit_read_table(k, 0, 7);
+      __syncthreads();
+    } else {
+      pw_fit_read_table(k, 0, 3);
+      __syncthreads();
+      pw_fit_m2(k);
+      pw_scan_barrier(bar, G, &epoch);
+      pw_fit_chains<6>(k, m2s);
+      for (int q = t; q < k.nloc; q += PW_TILE) {
+        int s = g + q * G;
+        pw_normal(m2s + q * 6, m1s[q * R], &k.tabg[3 * sp + s],
+                  &k.tabg[4 * sp + s], &k.tabg[5 * sp + s]);
+      }
+      pw_scan_barrier(bar, G, &epoch);
+      pw_fit_read_table(k, 3, 7);
+      __syncthreads();
+    }
   }
-  float* O = stats + (size_t)b * 8 * sp;
-  for (int j = threadIdx.x; j < 8 * sp; j += blockDim.x)
-    O[j] = j < 6 * sp ? m1[j] : 0.f;
+  if (g == 0 && t == 0) a.sweeps[b] = sweep + 1;
+  float* O = a.stats + (size_t)b * 8 * sp;
+  for (int q = t; q < k.nloc; q += PW_TILE) {
+    int s = g + q * G;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) O[r * sp + s] = r < 6 ? m1s[q * R + r] : 0.f;
+  }
 }
 
 template <bool FAST>
-static int pw_fit_level_launch(const float* p, const float* g0, float* g,
-                               float* stats, int B, int N, int sp,
-                               int max_iter, cudaStream_t st) {
-  constexpr int R = FAST ? 12 : 6;
-  int floats = PW_FIT_GROUPS * R * PW_TILE + PW_FIT_GROUPS * PW_TILE +
-               R * sp + (FAST ? 0 : 6 * sp) + 7 * sp;
-  int smem = floats * (int)sizeof(float);
+static int pw_fit_smem_bytes(int sp) {
+  // the node sums are sized for one block per scan (every node its own)
+  int R = FAST ? 12 : 6;
+  int floats = R * PW_TILE + 7 * sp + sp * R + (FAST ? 0 : sp * 6);
+  return (floats + 2 * PW_TILE + 1 + PW_PLAN_SMEM_INTS) * 4;
+}
+
+// The blocks a scan gets when the caller names none: the co-resident blocks
+// of the card divided by B, at most one per tile.  < 0: -(CUDA error).
+template <bool FAST>
+static int pw_fit_auto_blocks(int B, int N, int sp) {
+  int smem = pw_fit_smem_bytes<FAST>(sp), dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      pw_fit_level_kernel<FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pw_fit_level_kernel<FAST>, PW_TILE, smem);
+  if (e != cudaSuccess) return -(int)e;
+  int G = sms * per_sm / B;
+  G = G < N / PW_TILE ? G : N / PW_TILE;
+  return G > 1 ? G : 1;
+}
+
+template <bool FAST>
+static int pw_fit_level_launch(PwFitArgs a, int B, cudaStream_t st) {
+  if (a.G <= 0) a.G = pw_fit_auto_blocks<FAST>(B, a.N, a.sp);
+  if (a.G < 0) return -a.G;
+  int smem = pw_fit_smem_bytes<FAST>(a.sp);
   cudaError_t e = cudaFuncSetAttribute(
       pw_fit_level_kernel<FAST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  pw_fit_level_kernel<FAST><<<B, PW_FIT_THREADS, smem, st>>>(
-      p, g0, g, stats, N, sp, max_iter);
+  void* args[] = {&a};
+  // refused (and never run) where B * G blocks cannot be resident together
+  e = cudaLaunchCooperativeKernel((const void*)pw_fit_level_kernel<FAST>,
+                                  dim3(B * a.G), dim3(PW_TILE), args, smem,
+                                  st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 
+// blocks: blocks per scan, 0 for the card's co-resident blocks / B.  bitmap,
+// flag and bar are zeroed by the caller; sweeps (B,) gets the apply sweeps
+// each scan ran (an exact fit runs one moments sweep less).
 PW_EXPORT int pw_fit_level(const float* p, const float* g0, float* g,
-                           float* stats, int B, int N, int sp, int max_iter,
-                           int fast, void* stream) {
+                           float* stats, unsigned char* pos,
+                           unsigned char* start, int* tile_node, int* tile_off,
+                           unsigned* bitmap, int* node_off, int* dest,
+                           float* partial, float* tab, int* flag, int* bar,
+                           int* sweeps, int B, int N, int sp, int cap,
+                           int max_iter, int fast, int blocks, void* stream) {
+  PwFitArgs a = {p, g0, g, stats,
+                 {pos, start, tile_node, tile_off, bitmap, node_off, dest},
+                 partial, tab, flag, bar, sweeps, N, sp, cap, max_iter, blocks};
   cudaStream_t st = (cudaStream_t)stream;
-  return fast ? pw_fit_level_launch<true>(p, g0, g, stats, B, N, sp,
-                                          max_iter, st)
-              : pw_fit_level_launch<false>(p, g0, g, stats, B, N, sp,
-                                           max_iter, st);
+  return fast ? pw_fit_level_launch<true>(a, B, st)
+              : pw_fit_level_launch<false>(a, B, st);
+}
+
+// Blocks per scan of an automatic launch (> 0), or -(CUDA error).
+PW_EXPORT int pw_fit_level_blocks(int B, int N, int sp, int fast) {
+  return fast ? pw_fit_auto_blocks<true>(B, N, sp)
+              : pw_fit_auto_blocks<false>(B, N, sp);
 }

@@ -1,4 +1,4 @@
-// Fit-loop sweeps and the fixed-order segment sum.
+// Fit-loop sweeps, the sweep plan and the fixed-order segment sum.
 //
 // Replace (patchwork_tpu/kernels/):
 //   pw_apply_sweep    fit_pallas.py fused_apply -> _apply_kernel (93-136,
@@ -10,13 +10,30 @@
 //
 // On the TPU each tile's per-node sums are one-hot matmuls on the MXU over
 // a VMEM-resident cloud.  Here one block takes one tile of PW_TILE points of
-// one scan: each thread computes one point's rows into shared memory, then
-// the thread of node s adds the tile's points of s in point order, and a
-// second kernel adds the per-tile partials in tile order.  What bounds it on
-// the H100 is memory: about 28 bytes read and 4 written per point, plus the
-// dense (tiles, R, Sp) partials; the packed batch (34 MB at 8 x 131072)
-// stays in the 50 MB L2 across the sweeps of a level.
+// one scan and each thread computes one point's rows into shared memory.
+//
+// pw_apply_sweep is bound by memory (24 bytes read and 4 written per point;
+// a packed batch of 8 x 131072 points stays in the 50 MB L2 across the
+// sweeps of a level) and, below that, by the latency of its in-order sums.
+// It is one launch with no dense (tiles, R, Sp) buffer: the node ids are
+// fixed for a fit, so pw_sweep_plan finds once per level which nodes each
+// tile holds (tile_sums.cuh).  A sweep's block sorts its tile's rows by
+// node in shared memory, one thread per (present node, row) adds its run in
+// point order, and the block writes K x R floats, K the tile's node count.
+// A node's partials lie next to each other in tile order; the block that
+// writes the last of them (an integer count per node) adds them up, so the
+// chains run on many SMs while other tiles are still at work.  A tile
+// without a node would add +0.0, which changes no bit, so the sums equal
+// the dense ones bit for bit.  A thread loads its point's rows with
+// coalesced 4-byte loads and the six blocks an SM holds overlap them; a
+// ring of staged tiles filled by 16-byte asynchronous copies was measured
+// slower (more registers, fewer blocks per SM) and was not kept.
+//
+// pw_moments2_sweep and pw_seg_sum keep the dense scheme: the thread of node
+// s walks the tile's points (pw_tile_accumulate) and a second kernel adds
+// the (tiles, R, Sp) partials in tile order (pw_reduce_tiles).
 #include "common.cuh"
+#include "tile_sums.cuh"
 
 __global__ void pw_tile_reduce_kernel(const float* __restrict__ partial,
                                       float* __restrict__ out, int B, int nt,
@@ -56,21 +73,32 @@ __global__ void pw_seg_sum_partials(const float* __restrict__ rows,
                         partial + ((size_t)b * nt + tile) * R * sp);
 }
 
+// One tile of one scan per block.  partial (B, cap, R): the partial at
+// place e of scan b is at (b * cap + e) * R; done (B, sp) counts the
+// partials written per node and is zero between launches.
 template <bool FAST>
-__global__ void pw_apply_partials(const float* __restrict__ pts,
-                                  float* __restrict__ state,
-                                  const float* __restrict__ tab,
-                                  float* __restrict__ partial, int N, int sp,
-                                  int trash) {
+__global__ void __launch_bounds__(PW_TILE)
+    pw_apply_kernel(const float* __restrict__ pts, float* __restrict__ state,
+                    const float* __restrict__ tab, PwPlan plan, float* partial,
+                    float* __restrict__ out, int* done, int N, int sp,
+                    int cap, int trash) {
   constexpr int R = FAST ? 12 : 6;
-  __shared__ float vals[R][PW_TILE];
-  __shared__ int segs[PW_TILE];
-  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
+  __shared__ float vals[R * PW_TILE];
+  __shared__ int sstart[PW_TILE + 1];
+  __shared__ int sdest[PW_TILE];
+  __shared__ int full[PW_TILE];   // nodes whose last partial this block wrote
+  __shared__ int nfull;
+  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x;
   size_t i = (size_t)tile * PW_TILE + t;
   const float* P = pts + (size_t)b * 8 * N;
   float* S = state + (size_t)b * 4 * N;
   const float* T = tab + (size_t)b * 8 * sp;
+  PwPlan pl = pw_plan_scan_of(plan, b, N, sp, cap);
+  float* part = partial + (size_t)b * cap * R;
+  float* O = out + (size_t)b * R * sp;
 
+  int K = pw_tile_runs(tile, pl, sstart, sdest);
+  if (t == 0) nfull = 0;
   float x = P[i], y = P[(size_t)N + i], z = P[2 * (size_t)N + i];
   float segf = S[3 * (size_t)N + i];
   int s = (int)segf;
@@ -86,24 +114,75 @@ __global__ void pw_apply_partials(const float* __restrict__ pts,
   S[i] = g2;
   float gm = g2 * act;
   float xg = x * gm, yg = y * gm, zg = z * gm;
-  vals[0][t] = gm;
-  vals[1][t] = xg;
-  vals[2][t] = yg;
-  vals[3][t] = zg;
-  vals[4][t] = dist * g * act;
-  vals[5][t] = apply_m * fabsf(new_g - g);
+  float v[R];
+  v[0] = gm;
+  v[1] = xg;
+  v[2] = yg;
+  v[3] = zg;
+  v[4] = dist * g * act;
+  v[5] = apply_m * fabsf(new_g - g);
   if constexpr (FAST) {
-    vals[6][t] = x * xg;
-    vals[7][t] = y * xg;
-    vals[8][t] = z * xg;
-    vals[9][t] = y * yg;
-    vals[10][t] = z * yg;
-    vals[11][t] = z * zg;
+    v[6] = x * xg;
+    v[7] = y * xg;
+    v[8] = z * xg;
+    v[9] = y * yg;
+    v[10] = z * yg;
+    v[11] = z * zg;
   }
-  segs[t] = s;
+  pw_tile_compact_sums<R>(vals, sstart, sdest, v, (int)pl.pos[i], K, part);
+
+  // nodes with no point sum to +0.0; tile 0 writes them
+  if (tile == 0) {
+    for (int n = t; n < sp; n += PW_TILE) {
+      if (pl.node_off[n + 1] == pl.node_off[n]) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) O[r * sp + n] = 0.f;
+      }
+    }
+  }
+  // count this tile's partials per node; whoever completes a node sees all
+  // its partials and runs its chains
+  __threadfence();
   __syncthreads();
-  pw_tile_accumulate<R>(vals, segs, sp,
-                        partial + ((size_t)b * nt + tile) * R * sp);
+  if (t < K) {
+    int n = pl.tile_node[(size_t)tile * PW_TILE + t];
+    int want = pl.node_off[n + 1] - pl.node_off[n];
+    if (atomicAdd(&done[(size_t)b * sp + n], 1) == want - 1) {
+      full[atomicAdd(&nfull, 1)] = n;
+      done[(size_t)b * sp + n] = 0;
+    }
+  }
+  __syncthreads();
+  int nf = nfull;
+  if (nf == 0) return;
+  __threadfence();
+  for (int j = t; j < nf * R; j += PW_TILE) {
+    int q = j / R, r = j - q * R;
+    int n = full[q];
+    O[r * sp + n] = pw_chain(part, pl.node_off[n], pl.node_off[n + 1], R, r);
+  }
+}
+
+__global__ void __launch_bounds__(PW_TILE)
+    pw_plan_tiles_kernel(const float* __restrict__ rows, int nrows, int row,
+                         PwPlan plan, int N, int sp, int cap) {
+  __shared__ int iw[PW_PLAN_SMEM_INTS];
+  int b = blockIdx.y;
+  pw_plan_tile(rows + ((size_t)b * nrows + row) * N, blockIdx.x, N / PW_TILE,
+               pw_plan_scan_of(plan, b, N, sp, cap), iw);
+}
+
+__global__ void __launch_bounds__(PW_TILE)
+    pw_plan_offsets_kernel(PwPlan plan, int N, int sp, int cap) {
+  __shared__ int ws[33];
+  pw_plan_offsets(N / PW_TILE, sp,
+                         pw_plan_scan_of(plan, blockIdx.x, N, sp, cap), ws);
+}
+
+__global__ void __launch_bounds__(PW_TILE)
+    pw_plan_places_kernel(PwPlan plan, int N, int sp, int cap) {
+  pw_plan_places(blockIdx.x, N / PW_TILE,
+                            pw_plan_scan_of(plan, blockIdx.y, N, sp, cap));
 }
 
 __global__ void pw_m2_partials(const float* __restrict__ pts,
@@ -159,19 +238,40 @@ PW_EXPORT int pw_seg_sum(const float* rows, const int* seg, float* partial,
   return (int)cudaGetLastError();
 }
 
-PW_EXPORT int pw_apply_sweep(const float* pts, float* state, const float* tab,
-                             float* partial, float* out, int B, int N, int sp,
-                             int trash, int fast, void* stream) {
+// The plan of node-id row `row` of rows (B, nrows, N); bitmap is zeroed by
+// the caller, start, tile_node and dest too where their unused tails are
+// compared.
+PW_EXPORT int pw_sweep_plan(const float* rows, int nrows, int row,
+                            unsigned char* pos, unsigned char* start,
+                            int* tile_node, int* tile_off, unsigned* bitmap,
+                            int* node_off, int* dest, int B, int N, int sp,
+                            int cap, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  PwPlan plan = {pos, start, tile_node, tile_off, bitmap, node_off, dest};
+  dim3 grid(N / PW_TILE, B);
+  pw_plan_tiles_kernel<<<grid, PW_TILE, 0, st>>>(rows, nrows, row, plan, N, sp,
+                                                 cap);
+  pw_plan_offsets_kernel<<<B, PW_TILE, 0, st>>>(plan, N, sp, cap);
+  pw_plan_places_kernel<<<grid, PW_TILE, 0, st>>>(plan, N, sp, cap);
+  return (int)cudaGetLastError();
+}
+
+PW_EXPORT int pw_apply_sweep(const float* pts, float* state, const float* tab,
+                             unsigned char* pos, unsigned char* start,
+                             int* tile_node, int* tile_off, int* node_off,
+                             int* dest, int* done, float* partial, float* out,
+                             int B, int N, int sp, int cap, int trash,
+                             int fast, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  PwPlan plan = {pos, start, tile_node, tile_off, nullptr, node_off, dest};
   dim3 grid(N / PW_TILE, B);
   if (fast) {
-    pw_apply_partials<true><<<grid, PW_TILE, 0, st>>>(pts, state, tab, partial,
-                                                      N, sp, trash);
+    pw_apply_kernel<true><<<grid, PW_TILE, 0, st>>>(
+        pts, state, tab, plan, partial, out, done, N, sp, cap, trash);
   } else {
-    pw_apply_partials<false><<<grid, PW_TILE, 0, st>>>(pts, state, tab,
-                                                       partial, N, sp, trash);
+    pw_apply_kernel<false><<<grid, PW_TILE, 0, st>>>(
+        pts, state, tab, plan, partial, out, done, N, sp, cap, trash);
   }
-  pw_reduce_tiles(partial, out, B, N / PW_TILE, fast ? 12 : 6, sp, st);
   return (int)cudaGetLastError();
 }
 

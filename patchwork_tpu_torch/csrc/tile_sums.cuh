@@ -1,0 +1,257 @@
+// Sweep plan and compact tile sums, shared by the apply sweep (sweeps.cu)
+// and the one-launch fit loop (fitloop.cu).
+//
+// The order of every per-node sum is fixed (common.cuh): inside a tile the
+// points of node s are added in point order from +0.0, then the tiles'
+// partials in tile order from +0.0.  A tile that holds no point of s adds
+// +0.0, which changes no bit of a chain that starts at +0.0 (the chain never
+// holds -0.0), so a node's chain may skip every tile without it.  The node
+// ids are fixed for a whole fit, so which nodes occur in which tile is found
+// once, as a plan, and every sweep of the fit reuses it:
+//
+//   pos      (B, N)     u8   a point's place in its tile once the tile is
+//                            stably sorted by the first occurrence of its
+//                            node (its "slot"); a node's points keep their
+//                            point order and lie next to each other
+//   start    (B, N)     u8   [tile * PW_TILE + k]: where slot k's run starts
+//   tile_off (B, nt+1)  i32  prefix sums of the tiles' slot counts: slot k
+//                            of a tile is entry tile_off[tile] + k
+//   tile_node (B, N)    i32  [tile * PW_TILE + k]: slot k's node
+//   node_off (B, sp+1)  i32  prefix sums of the nodes' entry counts
+//   dest     (B, cap)   i32  an entry's place among all partials: those of
+//                            node s lie from node_off[s] on, in tile order
+//
+// and, as build scratch, bitmap (B, sp, W) u32, zeroed by the caller: bit
+// `tile` of node s is set where the tile holds s.  An entry's place among
+// its node's is the count of set bits below the tile's, so the places come
+// out in tile order without a sort and without an atomic that hands them
+// out.  Integer atomics (OR, ADD on counts) give the same result in any
+// order.
+//
+// A sweep then stages each point's rows at vals[pos][r], one thread per
+// (slot, row) adds its run in order and writes one float of the tile's K x R
+// partials at the entry's place, and a chain per (node, row) adds that
+// node's partials, which lie next to each other.  Nothing of size
+// (tiles, R, Sp) exists.  All kernels here run PW_TILE threads a block.
+#pragma once
+
+#include "common.cuh"
+
+struct PwPlan {
+  unsigned char* pos;
+  unsigned char* start;
+  int* tile_node;
+  int* tile_off;
+  unsigned* bitmap;
+  int* node_off;
+  int* dest;
+};
+
+// Shared-memory ints the plan's device functions need.
+#define PW_PLAN_SMEM_INTS (3 * PW_TILE + 33)
+
+// The plan of scan b.
+__device__ __forceinline__ PwPlan pw_plan_scan_of(PwPlan p, int b, int N,
+                                                  int sp, int cap) {
+  int nt = N / PW_TILE, W = (nt + 31) / 32;
+  p.pos += (size_t)b * N;
+  p.start += (size_t)b * N;
+  p.tile_node += (size_t)b * N;
+  p.tile_off += (size_t)b * (nt + 1);
+  p.bitmap += (size_t)b * sp * W;
+  p.node_off += (size_t)b * (sp + 1);
+  p.dest += (size_t)b * cap;
+  return p;
+}
+
+// The plan's device functions read the plan with __ldcg, through the L2:
+// inside fit_level another block of the same launch wrote it, and the L1
+// and the read-only path are not coherent.
+
+// Exclusive prefix sum of v over the block's PW_TILE threads; *total gets
+// the block's sum.  ws: 33 shared ints.  Ends with a barrier.
+__device__ __forceinline__ int pw_block_scan(int v, int* ws, int* total) {
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int n = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += n;
+  }
+  if (lane == 31) ws[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < PW_TILE / 32 ? ws[lane] : 0;
+    int wi = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      int n = __shfl_up_sync(0xffffffffu, wi, d);
+      if (lane >= d) wi += n;
+    }
+    ws[lane] = wi - w;
+    if (lane == 31) ws[32] = wi;
+  }
+  __syncthreads();
+  int res = inc - v + ws[warp];
+  *total = ws[32];
+  __syncthreads();
+  return res;
+}
+
+// Plan, step 1 of 3, one tile: slots in order of first occurrence, each
+// point's place, the runs' starts, the slot count (left in tile_off[tile+1]
+// for step 2) and the nodes' tile bits.  segrow: the scan's node ids as
+// floats.  iw: PW_PLAN_SMEM_INTS shared ints.
+__device__ __forceinline__ void pw_plan_tile(const float* segrow, int tile,
+                                             int nt, PwPlan pl, int* iw) {
+  int* segs = iw;
+  int* slots = iw + PW_TILE;
+  int* cnt = iw + 2 * PW_TILE;
+  int* ws = iw + 3 * PW_TILE;
+  int t = threadIdx.x, W = (nt + 31) / 32;
+  size_t i = (size_t)tile * PW_TILE + t;
+  int s = (int)segrow[i];
+  segs[t] = s;
+  cnt[t] = 0;
+  __syncthreads();
+  int rank = 0, first = t;
+  for (int u = 0; u < t; ++u) {
+    if (segs[u] == s) {
+      if (rank == 0) first = u;
+      ++rank;
+    }
+  }
+  int K;
+  int slot = pw_block_scan(rank == 0 ? 1 : 0, ws, &K);
+  if (rank == 0) slots[t] = slot;
+  __syncthreads();
+  slot = slots[first];
+  atomicAdd(&cnt[slot], 1);
+  __syncthreads();
+  int total;
+  int st = pw_block_scan(t < K ? cnt[t] : 0, ws, &total);
+  slots[t] = st;            // every thread read slots[first] two barriers ago
+  __syncthreads();
+  pl.pos[i] = (unsigned char)(slots[slot] + rank);
+  if (t < K) pl.start[i] = (unsigned char)st;
+  if (rank == 0) {
+    pl.tile_node[(size_t)tile * PW_TILE + slot] = s;
+    atomicOr(&pl.bitmap[(size_t)s * W + (tile >> 5)], 1u << (tile & 31));
+  }
+  if (t == 0) pl.tile_off[tile + 1] = K;
+  __syncthreads();
+}
+
+// Plan, step 2 of 3, one block per scan: tile_off and node_off as prefix
+// sums (the nodes' entry counts are the set bits of their bitmap rows).
+__device__ __forceinline__ void pw_plan_offsets(int nt, int sp, PwPlan pl,
+                                                int* ws) {
+  int t = threadIdx.x, W = (nt + 31) / 32, carry = 0, total;
+  for (int base = 0; base < nt; base += PW_TILE) {
+    int j = base + t;
+    int v = j < nt ? __ldcg(pl.tile_off + j + 1) : 0;
+    int ex = pw_block_scan(v, ws, &total);
+    if (j < nt) pl.tile_off[j + 1] = carry + ex + v;
+    carry += total;
+  }
+  carry = 0;
+  for (int base = 0; base < sp; base += PW_TILE) {
+    int s = base + t, v = 0;
+    if (s < sp)
+      for (int w = 0; w < W; ++w)
+        v += __popc(__ldcg(pl.bitmap + (size_t)s * W + w));
+    int ex = pw_block_scan(v, ws, &total);
+    if (s < sp) pl.node_off[s + 1] = carry + ex + v;
+    carry += total;
+  }
+  if (t == 0) {
+    pl.tile_off[0] = 0;
+    pl.node_off[0] = 0;
+  }
+}
+
+// Plan, step 3 of 3, one tile: each slot's entry gets its place, its
+// node's offset plus the count of earlier tiles that hold the node.
+__device__ __forceinline__ void pw_plan_places(int tile, int nt,
+                                                   PwPlan pl) {
+  int t = threadIdx.x, W = (nt + 31) / 32;
+  int off = __ldcg(pl.tile_off + tile);
+  int K = __ldcg(pl.tile_off + tile + 1) - off;
+  if (t < K) {
+    int s = __ldcg(pl.tile_node + (size_t)tile * PW_TILE + t);
+    const unsigned* bits = pl.bitmap + (size_t)s * W;
+    int place = 0;
+    for (int w = 0; w < (tile >> 5); ++w) place += __popc(__ldcg(bits + w));
+    place += __popc(__ldcg(bits + (tile >> 5)) & ((1u << (tile & 31)) - 1u));
+    pl.dest[off + t] = __ldcg(pl.node_off + s) + place;
+  }
+}
+
+// Load a tile's run starts into sstart[0..K] (sstart[K] = PW_TILE) and its
+// entries' places into sdest[0..K), and return K.  The caller's next barrier
+// publishes them.
+__device__ __forceinline__ int pw_tile_runs(int tile, PwPlan pl, int* sstart,
+                                            int* sdest) {
+  int t = threadIdx.x;
+  int off = __ldcg(pl.tile_off + tile);
+  int K = __ldcg(pl.tile_off + tile + 1) - off;
+  if (t < K) {
+    sstart[t] = __ldcg(pl.start + (size_t)tile * PW_TILE + t);
+    sdest[t] = __ldcg(pl.dest + off + t);
+  }
+  if (t == 0) sstart[K] = PW_TILE;
+  return K;
+}
+
+// One tile's partials: thread t stages its point's rows v at place `pos`;
+// one thread per (slot, row) adds its run in point order from +0.0 and
+// writes part[sdest[slot] * R + row].  vals: R * PW_TILE shared floats;
+// sstart, sdest from pw_tile_runs.  Ends with a barrier.
+template <int R>
+__device__ __forceinline__ void pw_tile_compact_sums(float* vals,
+                                                     const int* sstart,
+                                                     const int* sdest,
+                                                     const float (&v)[R],
+                                                     int pos, int K,
+                                                     float* part) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) vals[pos * R + r] = v[r];
+  __syncthreads();
+  for (int j = threadIdx.x; j < K * R; j += PW_TILE) {
+    int k = j / R, r = j - k * R;
+    const float* run = vals + sstart[k] * R + r;
+    int n = sstart[k + 1] - sstart[k], e = 0;
+    float acc = 0.f;
+    // loads eight at a time, adds in order
+    for (; e + 8 <= n; e += 8) {
+      float w[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) w[q] = run[(e + q) * R];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc += w[q];
+    }
+    for (; e < n; ++e) acc += run[e * R];
+    part[(size_t)sdest[k] * R + r] = acc;
+  }
+  __syncthreads();
+}
+
+// One (node, row) chain: the node's partials [lo, hi) of part (entries, R),
+// added in tile order from +0.0.  They come from other blocks of the same
+// launch, so they are read through the L2; the loads go out sixteen at a
+// time, the adds stay in order.
+__device__ __forceinline__ float pw_chain(const float* part, int lo, int hi,
+                                          int R, int r) {
+  float acc = 0.f;
+  const float* p = part + (size_t)lo * R + r;
+  int n = hi - lo, e = 0;
+  for (; e + 16 <= n; e += 16) {
+    float v[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) v[q] = __ldcg(p + (size_t)(e + q) * R);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) acc += v[q];
+  }
+  for (; e < n; ++e) acc += __ldcg(p + (size_t)e * R);
+  return acc;
+}

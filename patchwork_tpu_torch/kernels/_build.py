@@ -43,7 +43,9 @@ _SIGNATURES = {
     "pw_seg_order_stat": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                           _VP],
     "pw_seg_sum": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "pw_apply_sweep": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "pw_sweep_plan": [_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                      _I, _I, _VP],
+    "pw_apply_sweep": [_VP] * 12 + [_I] * 6 + [_VP],
     "pw_moments2_sweep": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_remap_r1": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "pw_remap_r1b": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
@@ -60,7 +62,8 @@ _SIGNATURES = {
     "pw_finish_nodes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_seg_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_seg_minmax": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "pw_fit_level": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "pw_fit_level": [_VP] * 16 + [_I] * 7 + [_VP],
+    "pw_fit_level_blocks": [_I, _I, _I, _I],
 }
 
 

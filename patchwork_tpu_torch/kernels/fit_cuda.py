@@ -10,6 +10,7 @@ family             replaces (patchwork_tpu/kernels/...)
 =================  ==================================================
 ``seg_order_stat`` fit_pallas.py ``seg_order_stat`` / ``_orderstat_kernel``
 ``apply_sweep``    fit_pallas.py ``fused_apply`` / ``_apply_kernel``
+                   (with ``sweep_plan``, built once per level for it)
 ``moments2_sweep`` fit_pallas.py ``fused_moments2`` / ``_moments2_kernel``
 ``level``          fit_pallas.py ``level_megakernel`` / ``_level_kernel``
 ``fit_level``      fit_pallas.py ``fit_level_megakernel`` / ``_mega_kernel``
@@ -27,7 +28,10 @@ tile of ``TILE`` points followed by a sum of the tiles in index order, and
 min/max/counts use integer atomics, which are exact in any order.  No sweep
 uses float atomics, so two runs give the same bits, and every plain
 version below adds in exactly the kernel's order: on the same device a
-kernel and its plain version agree bit for bit.
+kernel and its plain version agree bit for bit.  A tile that holds no point
+of a node adds +0.0 to that node's sum, which changes no bit, so the apply
+sweep and ``fit_level`` add only over the tiles that do hold it, found once
+per level as a :class:`SweepPlan` (the node ids are fixed during a fit).
 
 Every wrapper takes the plain version only for a tensor on the CPU; on a
 CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
@@ -36,6 +40,7 @@ launches per family.
 
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import torch
@@ -45,11 +50,12 @@ from ..segment.segops import SegOps, flatten_batch, sort_by_segment
 
 __all__ = [
     "TILE", "sp_width", "LAUNCHES", "reset_launches", "plain",
-    "seg_order_stat", "seg_sum", "apply_sweep", "moments2_sweep",
-    "remap_r1", "remap_r1b", "remap_nodes", "remap_points", "node_stats",
+    "seg_order_stat", "seg_sum", "SweepPlan", "sweep_plan", "apply_sweep",
+    "moments2_sweep", "remap_r1", "remap_r1b", "remap_nodes", "remap_points",
+    "node_stats",
     "early_outs", "deficient_round", "seed_init", "plane_table",
     "split_decision", "finish_nodes", "fit_pack", "megakernel_fits",
-    "fit_level",
+    "fit_level", "fit_level_blocks",
 ]
 
 TILE = 256           # points per partial sum (one CUDA block per tile)
@@ -61,7 +67,7 @@ _HIST_SMEM_LIMIT = 200 * 1024    # bytes of one order-stat block's histogram
 
 LAUNCHES = {"seg_order_stat": 0, "apply_sweep": 0, "moments2_sweep": 0,
             "level": 0, "seg_sum": 0, "fit_level": 0, "seg_gather": 0,
-            "seg_minmax": 0}
+            "seg_minmax": 0, "sweep_plan": 0}
 
 
 def reset_launches() -> None:
@@ -268,7 +274,149 @@ def _sweep_rows(fast: bool) -> int:
     return 12 if fast else 6
 
 
-def apply_sweep_plain(pts, state, tab, trash, fast):
+@dataclasses.dataclass
+class SweepPlan:
+    """Which nodes occur in which tile of TILE points, for sums that add
+    only over the tiles that hold a node (csrc/tile_sums.cuh).  A tile's
+    distinct nodes, in order of first occurrence, are its slots; slot k of
+    tile j is entry ``tile_off[j] + k`` of the scan.
+
+    pos (B, N) uint8: a point's place in its tile stably sorted by slot;
+    start (B, N) uint8: ``[j * TILE + k]`` where slot k's run starts;
+    tile_node (B, N) int32: ``[j * TILE + k]`` slot k's node; tile_off
+    (B, N / TILE + 1) int32; node_off (B, sp + 1) int32: prefix sums of the
+    nodes' entry counts; dest (B, cap) int32: an entry's place among the
+    scan's partials, where node s's lie from ``node_off[s]`` on in tile
+    order.  start, tile_node and dest are 0 beyond what the scan uses.  On
+    the card it also carries the sweeps' per-node counters and their
+    partials, so a fit allocates them once."""
+
+    pos: torch.Tensor
+    start: torch.Tensor
+    tile_node: torch.Tensor
+    tile_off: torch.Tensor
+    node_off: torch.Tensor
+    dest: torch.Tensor
+    sp: int
+    done: torch.Tensor | None = None
+    _partial: torch.Tensor | None = None
+
+    @property
+    def cap(self) -> int:
+        return self.dest.shape[1]
+
+    def partial(self, rows: int) -> torch.Tensor:
+        """Scratch for (B, cap, rows) tile partials."""
+        need = self.dest.numel() * rows
+        if self._partial is None or self._partial.numel() < need:
+            self._partial = torch.empty(need, dtype=torch.float32,
+                                        device=self.dest.device)
+        return self._partial
+
+    def tensors(self):
+        return (self.pos, self.start, self.tile_node, self.tile_off,
+                self.node_off, self.dest)
+
+
+def _plan_cap(n: int, sp: int) -> int:
+    """Most entries a scan can have: min(TILE, sp) per tile."""
+    return (n // TILE) * min(TILE, sp)
+
+
+def sweep_plan_plain(state, sp):
+    seg = state[:, 3].to(torch.int64)
+    b, n = seg.shape
+    nt = n // TILE
+    dev = seg.device
+    pos = torch.zeros((b, n), dtype=torch.uint8, device=dev)
+    start = torch.zeros((b, n), dtype=torch.uint8, device=dev)
+    tile_node = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    tile_off = torch.zeros((b, nt + 1), dtype=torch.int32, device=dev)
+    node_off = torch.zeros((b, sp + 1), dtype=torch.int32, device=dev)
+    dest = torch.zeros((b, _plan_cap(n, sp)), dtype=torch.int32, device=dev)
+    earlier = torch.ones((TILE, TILE), dtype=torch.bool, device=dev).tril(-1)
+    ar = torch.arange(TILE, device=dev)
+    for i in range(b):
+        s = seg[i].reshape(nt, TILE)
+        eq = s[:, :, None] == s[:, None, :]             # [tile, point, other]
+        rank = (eq & earlier).sum(2)                    # same node, earlier
+        is_first = rank == 0
+        first = eq.to(torch.uint8).argmax(2)            # first point of node
+        slot = (torch.cumsum(is_first, 1) - 1).gather(1, first)
+        k = is_first.sum(1)
+        cnt = torch.zeros_like(s).scatter_add_(1, slot, torch.ones_like(s))
+        run = torch.cumsum(cnt, 1) - cnt
+        pos[i] = (run.gather(1, slot) + rank).reshape(n).to(torch.uint8)
+        used = ar[None] < k[:, None]
+        start[i] = torch.where(used, run, 0).reshape(n).to(torch.uint8)
+        tile_off[i, 1:] = torch.cumsum(k, 0)
+        nodes = s[is_first]              # entry -> node (tile-major, by slot)
+        by_slot = torch.zeros_like(s)
+        by_slot[used] = nodes
+        tile_node[i] = by_slot.reshape(n)
+        # a stable sort by node keeps a node's entries in tile order
+        order = torch.argsort(nodes, stable=True)
+        dest[i, order] = torch.arange(order.numel(), dtype=torch.int32,
+                                      device=dev)
+        node_off[i, 1:] = torch.cumsum(torch.bincount(nodes, minlength=sp), 0)
+    return SweepPlan(pos, start, tile_node, tile_off, node_off, dest, sp)
+
+
+def sweep_plan(state: torch.Tensor, sp: int) -> SweepPlan:
+    """The :class:`SweepPlan` of the node ids in ``state`` row 3 (B, 4, N),
+    ids in [0, sp).  Built once per level: the fit loop changes row 0 only.
+
+    CUDA: three small kernels in one call.  A block per tile finds the
+    tile's slots, places and run starts in shared memory and sets the
+    tile's bit in each present node's bitmap row (integer OR); a block per
+    scan turns the slot counts and the rows' set bits into prefix sums; a
+    block per tile gives each entry its place, its node's offset plus the
+    count of set bits below the tile's, which is tile order without a sort.  Bound
+    by reading the ids once; its cost is spread over the level's sweeps.
+    """
+    if not _on_card(state):
+        return sweep_plan_plain(state, sp)
+    _f32(state)
+    if state.dim() != 3 or state.shape[1] != 4 or state.shape[2] % TILE:
+        raise ValueError(f"state must be (B, 4, N), N a multiple of {TILE}, "
+                         f"got {tuple(state.shape)}")
+    b, _, n = state.shape
+    plan, bitmap = _plan_buffers(b, n, sp, state.device)
+    _launch("sweep_plan", "pw_sweep_plan", state, 4, 3, plan.pos, plan.start,
+            plan.tile_node, plan.tile_off, bitmap, plan.node_off, plan.dest,
+            b, n, sp, plan.cap)
+    return plan
+
+
+def _plan_buffers(b, n, sp, dev):
+    """A card plan's tensors and its build scratch, the zeroed bitmap: one
+    zeroed and one uninitialised allocation, cut into views."""
+    nt = n // TILE
+    cap = _plan_cap(n, sp)
+    words = (nt + 31) // 32
+
+    def cut(buf, shapes):
+        out, at = [], 0
+        for rows, cols, dtype in shapes:
+            size = rows * cols // (4 if dtype == torch.uint8 else 1)
+            out.append(buf[at:at + size].view(dtype).view(rows, cols))
+            at += size
+        return out
+
+    zeroed = [(b, n, torch.uint8), (b, n, torch.int32), (b, cap, torch.int32),
+              (b, sp, torch.int32), (b, sp * words, torch.int32)]
+    raw = [(b, n, torch.uint8), (b, nt + 1, torch.int32),
+           (b, sp + 1, torch.int32)]
+    start, tile_node, dest, done, bitmap = cut(torch.zeros(
+        b * (n // 4 + n + cap + sp + sp * words), dtype=torch.int32,
+        device=dev), zeroed)
+    pos, tile_off, node_off = cut(torch.empty(
+        b * (n // 4 + nt + 1 + sp + 1), dtype=torch.int32, device=dev), raw)
+    return SweepPlan(pos, start, tile_node, tile_off, node_off, dest, sp,
+                     done=done), bitmap
+
+
+def apply_sweep_plain(pts, state, tab, trash, fast, plan=None):
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
     seg, act = _live(state, trash)
     g = state[:, 0].clone()
@@ -289,7 +437,8 @@ def apply_sweep_plain(pts, state, tab, trash, fast):
 
 
 def apply_sweep(pts: torch.Tensor, state: torch.Tensor, tab: torch.Tensor,
-                trash: int, fast: bool) -> torch.Tensor:
+                trash: int, fast: bool,
+                plan: SweepPlan | None = None) -> torch.Tensor:
     """One apply sweep of the fit loop; updates ``state`` row 0 in place.
 
     pts (B, 8, N) rows [x, y, z, ...]; state (B, 4, N) rows [ground, done,
@@ -301,11 +450,24 @@ def apply_sweep(pts: torch.Tensor, state: torch.Tensor, tab: torch.Tensor,
     (old mask), changed], plus 6 raw second moments [xx, xy, xz, yy, yz,
     zz] of the new mask in fast mode (R = 12).
 
-    CUDA: one block per (tile, scan); each thread computes one point and
-    stages its rows in shared memory; the thread of node s sums the tile's
-    points of s in point order; a second kernel sums the tiles in order.
-    Bound by memory: ~28 bytes read and 4 written per point, plus the
-    (tiles, R, Sp) partials.
+    ``plan`` is :func:`sweep_plan` of ``state``; a fit loop builds it once
+    and hands it to every sweep (row 3 does not change during a fit).
+    Without one the sweep builds its own, which costs three more launches
+    and two allocations: a caller that sweeps in a loop must pass a plan.
+
+    CUDA: one launch, one block per (tile, scan).  Bound by memory, 24
+    bytes read and 4 written per point, and below that by the latency of
+    the in-order sums.  Each thread computes one point and stages its rows
+    in shared memory at the point's place in the tile sorted by node (the
+    plan); one thread per (present node, row) adds its run in point order
+    and the block writes K x R floats, K the tile's node count, each node's
+    partials next to each other in tile order.  The block that writes a
+    node's last partial (an integer count per node) adds them up, so the
+    chains run on many SMs beside the tiles still at work.  No
+    (tiles, R, Sp) buffer exists and no second launch.  Loads are one
+    coalesced 4-byte load per thread and row, overlapped by the six blocks
+    an SM holds; a ring of tiles filled by asynchronous copies was
+    measured and was slower (PERF.md).
     """
     if not _on_card(pts, state, tab):
         return apply_sweep_plain(pts, state, tab, trash, fast)
@@ -314,11 +476,16 @@ def apply_sweep(pts: torch.Tensor, state: torch.Tensor, tab: torch.Tensor,
     b, _, n = pts.shape
     sp = tab.shape[2]
     r = _sweep_rows(fast)
-    partial = torch.empty((b, n // TILE, r, sp), dtype=torch.float32,
-                          device=pts.device)
+    if plan is None:
+        plan = sweep_plan(state, sp)
+    elif (plan.sp != sp or plan.pos.shape != (b, n)
+          or plan.pos.device != pts.device):
+        raise ValueError("the sweep plan does not fit these points")
     out = torch.empty((b, r, sp), dtype=torch.float32, device=pts.device)
-    _launch("apply_sweep", "pw_apply_sweep", pts, state, tab, partial, out,
-            b, n, sp, trash, int(fast))
+    _launch("apply_sweep", "pw_apply_sweep", pts, state, tab, plan.pos,
+            plan.start, plan.tile_node, plan.tile_off, plan.node_off,
+            plan.dest, plan.done, plan.partial(r), out, b, n, sp, plan.cap,
+            trash, int(fast))
     return out
 
 
@@ -869,7 +1036,9 @@ def fit_level_plain(p, g0, num_segs, max_iter, fast):
 
 
 def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
-              max_iter: int, fast: bool = False):
+              max_iter: int, fast: bool = False,
+              sweeps_out: torch.Tensor | None = None,
+              _blocks_per_scan: int = 0):
     """One level's complete fit loop (``_mega_kernel``) in one launch.
 
     p (B, 8, N) fit layout (:func:`fit_pack`), N a multiple of TILE; g0
@@ -877,14 +1046,25 @@ def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
     stats (B, 8, Sp) rows [cnt, sx, sy, sz, distsum (old mask), changed, 0,
     0] of the final fit).  ``fast`` accumulates raw second moments in the
     apply sweep (one sweep per iteration; expects patch-center-shifted
-    coordinates).
+    coordinates).  ``sweeps_out`` (B,) int32 on the card, if given, receives
+    the apply sweeps each scan ran (the work the data asked for).
+    ``_blocks_per_scan`` is for tests and the timing tool only (ragged and
+    empty tile shares); no result depends on it.
 
-    CUDA: one block per scan loops on the device until its mask stops
-    changing or max_iter, so each scan converges on its own and the level's
-    fit is one launch.  Per-node sums, moments and plane table live in
-    shared memory; sums keep the sweeps' order, so the kernel equals its
-    plain version (and the level path's fit) bit for bit.  Bound by one
-    block per scan: at small B most SMs idle.
+    CUDA: bound by latency, up to 101 sweeps that each need the sums of
+    the one before, so the whole card works on them.  Every scan gets the
+    card's co-resident blocks / B blocks (:func:`fit_level_blocks`) in one
+    co-operative launch; they loop on the device with a barrier per scan
+    in device memory, so each scan converges on its own with no host read.
+    A block keeps its tiles for the launch, builds their part of the sweep
+    plan, writes compact tile partials per sweep, and owns the nodes
+    ``s % blocks == block``: their in-order chains, centroid, normal and
+    table row.  Sums keep the
+    sweeps' order, so the kernel equals its plain version (and the level
+    path's fit) bit for bit, whatever the number of blocks.  A launch the
+    card cannot hold resident is refused and raises.  A batch of more
+    scans than the card holds blocks (about 660 on an H100) is cut into
+    several launches; a scan's result does not depend on its batch.
     """
     if not _on_card(p, g0):
         return fit_level_plain(p, g0, num_segs, max_iter, fast)
@@ -893,19 +1073,71 @@ def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
     b, _, n = p.shape
     if g0.shape != (b, 1, n):
         raise ValueError(f"g0 must be ({b}, 1, {n}), got {tuple(g0.shape)}")
+    if _blocks_per_scan < 0:
+        raise ValueError("_blocks_per_scan must be >= 0")
     sp = sp_width(num_segs)
+    dev = p.device
+    held = _fit_level_held(sp, fast)
+    if b > held:
+        if sweeps_out is None:
+            sweeps_out = torch.empty(b, dtype=torch.int32, device=dev)
+        cuts = [fit_level(p[i:i + held], g0[i:i + held], num_segs, max_iter,
+                          fast, sweeps_out[i:i + held], _blocks_per_scan)
+                for i in range(0, b, held)]
+        return (torch.cat([g for g, _ in cuts]),
+                torch.cat([st for _, st in cuts]))
     g = torch.empty_like(g0)
-    stats = torch.empty((b, 8, sp), dtype=torch.float32, device=p.device)
-    _launch("fit_level", "pw_fit_level", p, g0, g, stats, b, n, sp,
-            int(max_iter), int(fast))
+    stats = torch.empty((b, 8, sp), dtype=torch.float32, device=dev)
+    plan, bitmap = _plan_buffers(b, n, sp, dev)
+    tab = torch.empty((b, 7, sp), dtype=torch.float32, device=dev)
+    sync = torch.zeros((3, b), dtype=torch.int32, device=dev)
+    if sweeps_out is None:
+        sweeps_out = sync[2]
+    elif (sweeps_out.shape != (b,) or sweeps_out.dtype != torch.int32
+          or not _on_card(p, sweeps_out)):
+        raise ValueError("sweeps_out must be (B,) int32 on the points' device")
+    _launch("fit_level", "pw_fit_level", p, g0, g, stats, plan.pos,
+            plan.start, plan.tile_node, plan.tile_off, bitmap, plan.node_off,
+            plan.dest, plan.partial(_sweep_rows(fast)), tab, sync[0], sync[1],
+            sweeps_out, b, n, sp, plan.cap, int(max_iter), int(fast),
+            int(_blocks_per_scan))
     return g, stats
+
+
+_FIT_LEVEL_HELD: dict = {}
+
+
+def _fit_level_held(sp: int, fast: bool) -> int:
+    """Blocks of a :func:`fit_level` launch the card holds at a time: the
+    most scans one launch takes."""
+    key = (torch.cuda.current_device(), sp, bool(fast))
+    if key not in _FIT_LEVEL_HELD:
+        from . import _build
+
+        held = _build.load().pw_fit_level_blocks(1, 1 << 30, sp, int(fast))
+        if held <= 0:
+            raise RuntimeError(f"pw_fit_level_blocks: CUDA error {-held}")
+        _FIT_LEVEL_HELD[key] = held
+    return _FIT_LEVEL_HELD[key]
+
+
+def fit_level_blocks(b: int, n: int, num_segs: int, fast: bool = False) -> int:
+    """Blocks per scan of a :func:`fit_level` launch on the current card:
+    its co-resident blocks divided by ``b``, at most one per tile."""
+    from . import _build
+
+    blocks = _build.load().pw_fit_level_blocks(b, n, sp_width(num_segs),
+                                               int(fast))
+    if blocks <= 0:
+        raise RuntimeError(f"pw_fit_level_blocks: CUDA error {-blocks}")
+    return blocks
 
 
 # The plain versions under the wrappers' names: what the engine calls to
 # run the level with no kernel on any device.
 plain = types.SimpleNamespace(
     seg_order_stat=seg_order_stat_plain, seg_sum=seg_sum_plain,
-    apply_sweep=apply_sweep_plain, moments2_sweep=moments2_sweep_plain,
+    sweep_plan=lambda state, sp: None, apply_sweep=apply_sweep_plain, moments2_sweep=moments2_sweep_plain,
     remap_r1=remap_r1_plain, remap_r1b=remap_r1b_plain,
     remap_nodes=remap_nodes_plain, remap_points=remap_points_plain,
     node_stats=node_stats_plain, early_outs=early_outs_plain,

@@ -134,7 +134,8 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
     return state, stats
 
 
-def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
+def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast,
+              plan=None):
     """The fit while-loop of a level (fit_pallas.py:1357-1425) on the sweeps
     of ``k`` (the kernels or their plain versions): from the sums ``m1`` of
     the seeded mask, plane table then apply sweep until no scan changed or
@@ -142,7 +143,10 @@ def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
     That sweep runs only on a max_iter exit: after a convergence exit the
     mask equals the last sweep's input, so its sums are bitwise those of
     the last sweep.  ``state`` row 0 (the mask) is updated in place; returns
-    the final sums."""
+    the final sums.  Row 3 (the node ids) is fixed for the loop, so one
+    sweep plan (``plan``, built here unless given) serves every sweep."""
+    if plan is None:
+        plan = k.sweep_plan(state, fit_row.shape[1])
     def make_tab(m1, with_can):
         c = (m1[:, 1:4] / torch.clamp(m1[:, 0:1], min=1.0)).contiguous()
         m2 = None if fast else k.moments2_sweep(pts, state, c, trash)
@@ -151,12 +155,13 @@ def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
 
     changed = True
     for _ in range(max_iter):
-        m1 = k.apply_sweep(pts, state, make_tab(m1, True), trash, fast)
+        m1 = k.apply_sweep(pts, state, make_tab(m1, True), trash, fast, plan)
         changed = bool((m1[:, 5] > 0.0).any())
         if not changed:
             break
     if changed:
-        m1 = k.apply_sweep(pts, state, make_tab(m1, False), trash, fast)
+        m1 = k.apply_sweep(pts, state, make_tab(m1, False), trash, fast,
+                           plan)
     return m1
 
 
@@ -363,10 +368,13 @@ def _fused_fit_resid(cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
                       float(trash))
         zero = torch.zeros_like(g0)
         state = torch.stack([g0, zero, zero, seg_fit], 1)
-        m1 = k.apply_sweep(p, state, p.new_zeros(b, 8, sp), trash, False)
+        plan = k.sweep_plan(state, sp)
+        m1 = k.apply_sweep(p, state, p.new_zeros(b, 8, sp), trash, False,
+                           plan)
         sf = _fit_loop(k, p, state, m1, _pad_sp(fit_node.to(torch.float32),
                                                 sp),
-                       _pad_sp(tau_node, sp), trash, cfg.max_iter, False)
+                       _pad_sp(tau_node, sp), trash, cfg.max_iter, False,
+                       plan)
         g = state[:, 0]
     gcnt = sf[:, 0, :num_segs]
     resid = sf[:, 4, :num_segs] / torch.clamp(gcnt, min=1.0)

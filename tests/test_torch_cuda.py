@@ -317,3 +317,156 @@ def test_bev_images_on_cuda_equal_cpu(dev):
         img_g = fn(*(g[i] for i in args))
         assert img_g.is_cuda
         assert torch.equal(img_g.cpu(), fn(*(c[i] for i in args)))
+
+
+# ---------------------------------------------------------------------------
+# the sweep plan, the planned apply sweep and the co-operative fit_level
+# ---------------------------------------------------------------------------
+
+def _order_ids(state, order):
+    """Node ids of ``state`` row 3 sorted (a few nodes per tile, as in an
+    azimuth-ordered scan) or left shuffled (up to a tile's width of them)."""
+    if order == "sorted":
+        state[:, 3] = torch.sort(state[:, 3], dim=1).values
+    return state
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("s", [81, 200], ids=["sp128", "sp256"])
+def test_sweep_plan_matches_plain(dev, s, order):
+    _, state, tab, _ = _sweep_inputs(dev, 11, b=3, n=66 * 256, s=s)
+    state = _order_ids(state, order)
+    sp = tab.shape[2]
+    fit_cuda.reset_launches()
+    plan = fit_cuda.sweep_plan(state, sp)
+    assert fit_cuda.LAUNCHES["sweep_plan"] == 1
+    again = fit_cuda.sweep_plan(state, sp)
+    want = fit_cuda.sweep_plan_plain(state, sp)
+    for got, twice, ref in zip(plan.tensors(), again.tensors(),
+                               want.tensors()):
+        assert torch.equal(got, ref) and torch.equal(got, twice)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("s", [81, 200], ids=["sp128", "sp256"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_apply_sweep_with_shared_plan_matches_plain(dev, b, s, order, fast):
+    pts, state, tab, trash = _sweep_inputs(dev, 13 + b, b=b, n=9 * 256, s=s)
+    state = _order_ids(state, order)
+    plan = fit_cuda.sweep_plan(state, tab.shape[2])
+    st_p = state.clone()
+    ref = fit_cuda.plain.apply_sweep(pts, st_p, tab, trash, fast)
+    fit_cuda.reset_launches()
+    for _ in range(2):      # the same plan, the same bits, run after run
+        st_k = state.clone()
+        got = fit_cuda.apply_sweep(pts, st_k, tab, trash, fast, plan)
+        assert _equal(got, ref) and _equal(st_k, st_p)
+    assert fit_cuda.LAUNCHES["apply_sweep"] == 2
+    assert fit_cuda.LAUNCHES["sweep_plan"] == 0
+    assert int(plan.done.abs().sum()) == 0, "the node counters must reset"
+    # a second fit's sweeps through the same plan: the table changes
+    tab2 = tab.clone()
+    tab2[:, 7] *= 0.5
+    st_k, st_p = state.clone(), state.clone()
+    assert _equal(fit_cuda.apply_sweep(pts, st_k, tab2, trash, fast, plan),
+                  fit_cuda.plain.apply_sweep(pts, st_p, tab2, trash, fast))
+    assert _equal(st_k, st_p)
+
+
+def test_apply_sweep_rejects_a_plan_of_other_points(dev):
+    pts, state, tab, trash = _sweep_inputs(dev, 7)
+    other = fit_cuda.sweep_plan(state[..., :2048].contiguous(), tab.shape[2])
+    with pytest.raises(ValueError):
+        fit_cuda.apply_sweep(pts, state, tab, trash, False, other)
+
+
+def _fit_inputs(dev, seed, b, n, s, order):
+    """A fit layout with planar patches: ground near z = 0 plus clutter, a
+    tau per point, every point free to update, half of them seeded."""
+    rng = np.random.default_rng(seed)
+    xyz = np.empty((b, 3, n), np.float32)
+    xyz[:, 0:2] = rng.normal(0, 20, (b, 2, n))
+    clutter = rng.random((b, n)) < 0.3
+    xyz[:, 2] = np.where(clutter, rng.uniform(0.3, 2.0, (b, n)),
+                         rng.normal(0, 0.03, (b, n)))
+    seg = rng.integers(0, s, (b, n))
+    if order == "sorted":
+        seg = np.sort(seg, axis=1)
+    tau = np.full((b, n), 0.125, np.float32)
+    amask = seg < s - 1
+    g0 = ((rng.random((b, n)) < 0.5) & amask).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (xyz, tau, amask, seg, g0)]
+    return fit_cuda.fit_pack(*t[:4]), t[4][:, None].contiguous()
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("max_iter", [1, 2, 30])
+@pytest.mark.parametrize("blocks", [0, 1, 7, 33, 25, 100],
+                         ids=["auto", "one", "ragged", "two_tiles",
+                              "two_or_three_tiles", "empty_shares"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_fit_level_blocks_batches_and_exits(dev, b, blocks, max_iter, fast):
+    # 66 tiles over 7 blocks: shares of 9 and 10 tiles, 81 nodes over 7;
+    # over 33 and 25 blocks shares of two and three; of 100 blocks 34 have
+    # no tile and 19 no node
+    p, g0 = _fit_inputs(dev, 3 * b + max_iter, b, 66 * 256, 81, "sorted")
+    g_p, s_p = fit_cuda.plain.fit_level(p, g0, 81, max_iter, fast)
+    # the card holds 8 x 82 blocks of 100 a scan: still more than tiles
+    blocks = min(blocks, fit_cuda._fit_level_held(128, fast) // b)
+    fit_cuda.reset_launches()
+    sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        g_k, s_k = fit_cuda.fit_level(p, g0, 81, max_iter, fast=fast,
+                                      _blocks_per_scan=blocks,
+                                      sweeps_out=sweeps)
+        assert torch.equal(g_k, g_p) and _equal(s_k, s_p)
+    assert fit_cuda.LAUNCHES["fit_level"] == 2
+    assert not torch.equal(g_k, g0), "no refit ran"
+    k = sweeps.cpu().numpy()
+    assert np.all(k >= 2) and np.all(k <= max_iter + 2)
+    if max_iter <= 2:
+        assert np.all(k == max_iter + 2), "a max_iter exit adds the final fit"
+    if b > 1:       # a scan's result does not depend on its batch
+        g_1, s_1 = fit_cuda.fit_level(p[1:2].contiguous(),
+                                      g0[1:2].contiguous(), 81, max_iter,
+                                      fast=fast, _blocks_per_scan=blocks)
+        assert torch.equal(g_1[0], g_k[1]) and _equal(s_1[0], s_k[1])
+
+
+@pytest.mark.parametrize("s", [81, 200], ids=["sp128", "sp256"])
+def test_fit_level_shuffled_cloud(dev, s):
+    p, g0 = _fit_inputs(dev, s, 2, 20 * 256, s, "shuffled")
+    for fast in (False, True):
+        g_k, s_k = fit_cuda.fit_level(p, g0, s, 5, fast=fast)
+        g_p, s_p = fit_cuda.plain.fit_level(p, g0, s, 5, fast)
+        assert torch.equal(g_k, g_p) and _equal(s_k, s_p)
+
+
+def test_fit_level_uses_the_card_and_refuses_what_it_cannot_hold(dev):
+    n = 600 * 256
+    assert fit_cuda.fit_level_blocks(1, n, 81) > 1
+    assert fit_cuda.fit_level_blocks(8, n, 81) > 1
+    p, g0 = _fit_inputs(dev, 5, 2, 8 * 256, 81, "sorted")
+    fit_cuda.reset_launches()
+    with pytest.raises(RuntimeError):   # more blocks than can be resident
+        fit_cuda.fit_level(p, g0, 81, 2, _blocks_per_scan=1_000_000)
+    assert fit_cuda.LAUNCHES["fit_level"] == 0, "a refused launch is no launch"
+    with pytest.raises(ValueError):
+        fit_cuda.fit_level(p, g0, 81, 2, _blocks_per_scan=-1)
+    with pytest.raises(ValueError):
+        fit_cuda.fit_level(p, g0, 81, 2, sweeps_out=torch.zeros(
+            3, dtype=torch.int32, device=dev))
+
+
+def test_fit_level_cuts_a_batch_the_card_cannot_hold(dev):
+    held = fit_cuda._fit_level_held(fit_cuda.sp_width(81), False)
+    b = held + 3
+    p, g0 = _fit_inputs(dev, 9, b, 2 * 256, 81, "sorted")
+    fit_cuda.reset_launches()
+    sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+    g_k, s_k = fit_cuda.fit_level(p, g0, 81, 3, sweeps_out=sweeps)
+    assert fit_cuda.LAUNCHES["fit_level"] == 2
+    g_p, s_p = fit_cuda.plain.fit_level(p, g0, 81, 3, False)
+    assert torch.equal(g_k, g_p) and _equal(s_k, s_p)
+    assert int(sweeps.min()) >= 2

@@ -1,0 +1,279 @@
+#!/usr/bin/env python3
+"""Check and time the port's redesigned kernels on one NVIDIA card.
+
+    python3 tools/torch_kernel_bench.py [--json PATH]
+
+Times of the sweep plan, the planned apply sweep and the co-operative
+``fit_level`` at the main path's shapes, each held to its plain version
+(bitwise) on the input it is timed on: the apply sweep on the level path's
+inputs (velodyne and split terrain, B=8 x 131072) and on the same points
+shuffled, by CUDA events over back-to-back launches and by torch.profiler's
+device times, beside the dense moments2 sweep; ``fit_level`` on the level-0
+fit of B=8/3/1 x 153600 128-beam scans over a range of blocks per scan,
+beside the loop of sweeps; then one profiled batch per path (device busy
+time, host span, idle share, top kernels).  Prints the card's name and power limit and
+what ptxas reported for these kernels first; exits non-zero on any
+mismatch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_bench: no CUDA device", file=sys.stderr)
+        return 1
+
+    import chip_smoke
+    from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
+    from patchwork_tpu_torch.core.device import card_info, cuda_device
+    from patchwork_tpu_torch.io.synthetic import velodyne_like_cloud
+    from patchwork_tpu_torch.kernels import _build, fit_cuda
+    from patchwork_tpu_torch.segment import engine
+
+    dev = cuda_device()
+    card = card_info().splitlines()[0]
+    print(card, flush=True)
+    _build.load()
+    log = (_build._BUILD / "nvcc.log").read_text()
+    for m in re.finditer(r"Compiling entry function '(\w+)'[^\n]*\n"
+                         r"[^\n]*\n\s*([^\n]*spill[^\n]*)\n"
+                         r"ptxas info\s+: (Used [^\n]+)", log):
+        if re.search(r"apply_kernel|pw_plan_|fit_level", m.group(1)):
+            print(f"[ptxas] {m.group(1)}: {m.group(3)}; {m.group(2)}",
+                  flush=True)
+    bad = []
+    out = {"card": card}
+
+    def check(ok, what):
+        print(f"[check] {what}: {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            bad.append(what)
+
+    def bits(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def batch(gen, b, n, **kw):
+        xyz = torch.from_numpy(np.stack([gen(n, seed=s, **kw)
+                                         for s in range(b)]))
+        return xyz.to(dev), torch.ones(xyz.shape[:2], dtype=torch.bool,
+                                       device=dev)
+
+    def capture(data, cfg, module, name, pick=1):
+        cap = chip_smoke.Capture(module, [name], {name: pick})
+        try:
+            filter_ground_batched(*data, cfg)
+        finally:
+            cap.restore()
+        return cap.saved[name]
+
+    def shuffled(a, seed):
+        """The captured sweep input with its points in random order."""
+        pts, state, tab, trash, fast = a[:5]
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        perm = torch.randperm(pts.shape[2], generator=g).to(dev)
+        return (pts[:, :, perm].contiguous(), state[:, :, perm].contiguous(),
+                tab, trash, fast)
+
+    def check_sweep(label, a):
+        pts, state, tab, trash, fast = a[:5]
+        sp = tab.shape[2]
+        plan = fit_cuda.sweep_plan(state, sp)
+        ref = fit_cuda.sweep_plan_plain(state, sp)
+        check(all(torch.equal(x, y) for x, y in
+                  zip(plan.tensors(), ref.tensors())), f"{label} plan")
+        st_k, st_p, st_2 = state.clone(), state.clone(), state.clone()
+        got = fit_cuda.apply_sweep(pts, st_k, tab, trash, fast, plan)
+        again = fit_cuda.apply_sweep(pts, st_2, tab, trash, fast, plan)
+        want = fit_cuda.apply_sweep_plain(pts, st_p, tab, trash, fast)
+        torch.cuda.synchronize()
+        check(bits(got, want) and bits(st_k, st_p), f"{label} apply vs plain")
+        check(bits(got, again) and bits(st_k, st_2), f"{label} apply twice")
+        total = plan.tile_off[:, -1].float()
+        return plan, float(total.mean()) / (pts.shape[2] // fit_cuda.TILE)
+
+    def check_fit(label, p, g0, num_segs, max_iter, fast, blocks):
+        g_k, s_k = fit_cuda.fit_level(p, g0, num_segs, max_iter, fast=fast,
+                                      _blocks_per_scan=blocks)
+        g_2, s_2 = fit_cuda.fit_level(p, g0, num_segs, max_iter, fast=fast,
+                                      _blocks_per_scan=blocks)
+        g_p, s_p = fit_cuda.fit_level_plain(p, g0, num_segs, max_iter, fast)
+        torch.cuda.synchronize()
+        check(torch.equal(g_k, g_p) and bits(s_k, s_p),
+              f"{label} fit_level vs plain")
+        check(torch.equal(g_k, g_2) and bits(s_k, s_2), f"{label} twice")
+        return g_k, s_k
+
+    # ---- times at the main path's shapes ----
+    B, N, N_GEN = chip_smoke.B, chip_smoke.N, chip_smoke.N_GEN
+
+    def events_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def device_us(fn, reps, pattern):
+        """Mean device time per call of the kernels matching ``pattern``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if re.search(pattern, ev.key):
+                total += getattr(ev, "device_time_total",
+                                 getattr(ev, "cuda_time_total", 0.0))
+        return total / reps
+
+    sweeps = {}
+    scenes = {"velodyne": batch(velodyne_like_cloud, B, N),
+              "split": batch(chip_smoke.split_terrain_cloud, B, N)}
+    for fast in (False, True):
+        cfg = PatchworkConfig(fast_covariance=fast)
+        mode = "fast" if fast else "exact"
+        for scene, data in scenes.items():
+            a, _ = capture(data, cfg, fit_cuda, "apply_sweep", 5)
+            for label, inp in ((scene, a), (scene + " shuffled",
+                                            shuffled(a, 2))):
+                plan, per_tile = check_sweep(f"{label} {mode}", inp)
+                pts, state, tab, trash, _ = inp[:5]
+                st = state.clone()
+                row = {
+                    "nodes_per_tile": per_tile, "sp": tab.shape[2],
+                    "events_us": 1e3 * events_ms(lambda: fit_cuda.apply_sweep(
+                        pts, st, tab, trash, fast, plan), 200),
+                    "device_us": device_us(lambda: fit_cuda.apply_sweep(
+                        pts, st, tab, trash, fast, plan), 50, "pw_apply"),
+                    "plan_events_us": 1e3 * events_ms(
+                        lambda: fit_cuda.sweep_plan(state, tab.shape[2]), 50),
+                    "plan_device_us": device_us(
+                        lambda: fit_cuda.sweep_plan(state, tab.shape[2]), 20,
+                        "pw_plan"),
+                    "moments2_device_us": device_us(
+                        lambda: fit_cuda.moments2_sweep(
+                            pts, st, tab[:, :3].contiguous(), trash), 20,
+                        "pw_m2|pw_tile_reduce")}
+                sweeps[f"{label} {mode}"] = row
+                print(f"[sweep] {label} {mode} B={B} N={N} Sp={row['sp']} "
+                      f"nodes/tile {per_tile:.2f}: apply {row['device_us']:.1f}"
+                      f" us device, {row['events_us']:.1f} us by events; plan "
+                      f"{row['plan_device_us']:.1f} us device, "
+                      f"{row['plan_events_us']:.1f} us by events; moments2 "
+                      f"(dense) {row['moments2_device_us']:.1f} us device",
+                      flush=True)
+    out["sweeps"] = sweeps
+
+    fits = {}
+    gen = batch(velodyne_like_cloud, B, N_GEN, num_beams=128)
+    for fast in (False, True):
+        cfg = PatchworkConfig(fast_covariance=fast)
+        mode = "fast" if fast else "exact"
+        (p, g0, num_segs, max_iter), kw = capture(gen, cfg, fit_cuda,
+                                                  "fit_level")
+        (fargs, fkw) = capture(gen, cfg, engine, "_fused_fit_resid")
+        gate = fit_cuda.megakernel_fits
+        fit_cuda.megakernel_fits = lambda n, sp: False
+        try:
+            loop_ms = chip_smoke._time_ms(engine._fused_fit_resid, fargs, fkw,
+                                          3)
+        finally:
+            fit_cuda.megakernel_fits = gate
+        for b in (8, 3, 1):
+            pb, gb = p[:b].contiguous(), g0[:b].contiguous()
+            auto = fit_cuda.fit_level_blocks(b, N_GEN, num_segs, fast)
+            check_fit(f"{mode} B={b} N={N_GEN} G=auto({auto})", pb, gb,
+                      num_segs, max_iter, fast, 0)
+            for blocks in sorted({auto, 16, 32, 64, 128, 264, 600}):
+                if blocks > auto:
+                    continue
+                ms = events_ms(lambda: fit_cuda.fit_level(
+                    pb, gb, num_segs, max_iter, fast=fast,
+                    _blocks_per_scan=blocks), 3)
+                fits[f"{mode} B={b} G={blocks}"] = ms
+                print(f"[fit_level] {mode} B={b} N={N_GEN} blocks/scan "
+                      f"{blocks}{' (auto)' if blocks == auto else ''}: "
+                      f"{ms:.3f} ms", flush=True)
+        fits[f"{mode} loop of sweeps B={B}"] = loop_ms
+        print(f"[fit_level] {mode} B={B} N={N_GEN}: the loop of sweeps on the "
+              f"same fit {loop_ms:.3f} ms", flush=True)
+    out["fit_level_ms"] = fits
+
+    # ---- one profiled batch per path: device busy, span, idle share ----
+    def profile_batch(label, fn):
+        import time
+
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            span = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if t > 0:
+                rows.append((t / 1e3, ev.count, ev.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        top = "; ".join(f"{k[:40]} {t:.2f} ms x{c}" for t, c, k in rows[:5])
+        out.setdefault("profiles", {})[label] = {
+            "busy_ms": busy, "span_ms": span, "idle": 1 - busy / span,
+            "top": [(k, t, c) for t, c, k in rows[:8]]}
+        print(f"[profile] {label}: device busy {busy:.2f} ms of a "
+              f"{span:.2f} ms span, idle share {1 - busy / span:.3f}; {top}",
+              flush=True)
+
+    velo = scenes["velodyne"]
+    for fast in (False, True):
+        cfg = PatchworkConfig(fast_covariance=fast)
+        mode = "fast" if fast else "exact"
+        profile_batch(f"velodyne B={B} N={N} {mode}, level path",
+                      lambda: filter_ground_batched(*velo, cfg))
+        profile_batch(f"velodyne128 B={B} N={N_GEN} {mode}, generic path",
+                      lambda: filter_ground_batched(*gen, cfg))
+        profile_batch(f"velodyne128 B={B} N={N_GEN} {mode}, level path forced",
+                      lambda: chip_smoke.level_path(
+                          engine, filter_ground_batched, *gen, cfg))
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+    print("torch_kernel_bench: " + ("FAILED: " + "; ".join(bad) if bad
+                                    else "all checks passed"), flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
