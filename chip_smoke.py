@@ -11,12 +11,16 @@ Phases, one line each:
      level path, the "pallas" segment ops and the generic engine's fit),
      with its bound (the least time the card could take: bytes over
      3.35 TB/s or float32 operations over 67 TFLOP/s) and, where one PyTorch
-     call computes the same function, that call's time; then the two
+     call computes the same function, that call's time; then the
      redesigned kernels: the sweep plan against its plain version, the
-     apply sweep with a shared plan on velodyne, split terrain and a
-     shuffled cloud at Sp 128 and 256, and fit_level at B = 1, 3, 8, each
-     scan against its solo run, a max_iter exit beside a convergence exit,
-     every one run twice with equal bits;
+     apply sweep and the moments2 sweep with a shared plan on velodyne,
+     split terrain and a shuffled cloud at Sp 128 and 256 (the moments2
+     sweep also without a plan, and after an apply sweep on the same plan),
+     seg_gather at C = 1, 3, 8 and point counts that are no multiple of 4,
+     and fit_level at B = 1, 3, 8, each scan against its solo run, a
+     max_iter exit beside a convergence exit, every one run twice with
+     equal bits; the device times (torch.profiler) of the moments2 sweep,
+     seg_gather and torch.gather;
   4. slice: filter_ground_batched on B=8 x 131072 velodyne-like scans and
      on B=8 x 131072 split-terrain scans (whose patches recurse), exact and
      fast mode, through the kernels: exact masks equal the plain path's bit
@@ -32,12 +36,16 @@ Phases, one line each:
      IoU within 0.001 of EVAL_r05.json in both modes;
   6. timing: scans/s of the kernel path and the plain path (CUDA events),
      and of the generic path beside the level path forced on the same scans;
-  7. front ends, through the entry points a user calls, with the launch
+  7. front ends, through the entry points a user calls, built with no
+     device argument (they default to the card, and what they return must
+     lie there), with the launch
      counts read around those calls only: (a) LidarFusion on the card fuses
      eight 3-LiDAR IAC scenes to 131072 points each, bit for bit as on the
      CPU, and filter_ground_batched segments them (exact masks equal the
      plain path's, fast IoU >= 0.999); (b) RecursivePatchwork's
-     sample_ground_and_obstacles; (c) the CLI in this process on the demo
+     sample_ground_and_obstacles, and PointCloudProcessor and the API's
+     static utilities with no device (each allocates on the card and agrees
+     with device="cpu"); (c) the CLI in this process on the demo
      cloud and on a split-terrain KITTI frame (whose patches split, so the
      order statistic runs), with both PNGs decoded; (d) the CLI as a
      process on a 3-topic MCAP (bag -> fusion -> engine); (e) a JSON launch
@@ -218,13 +226,15 @@ def library_ms(name, args):
     return None
 
 
-def redesigned_kernel_checks(dev, fails, sweep_inputs, fit_inputs) -> None:
-    """Phase 3's checks of the sweep plan, the planned apply sweep and the
-    co-operative fit_level (see the module docstring).  ``sweep_inputs``:
-    label -> apply_sweep arguments captured from the main path;
-    ``fit_inputs``: mode -> fit_level arguments."""
+def redesigned_kernel_checks(dev, fails, sweep_inputs, fit_inputs,
+                             gather_input) -> None:
+    """Phase 3's checks of the sweep plan, the planned apply and moments2
+    sweeps, seg_gather and the co-operative fit_level (see the module
+    docstring).  ``sweep_inputs``: label -> apply_sweep arguments captured
+    from the main path; ``fit_inputs``: mode -> fit_level arguments;
+    ``gather_input``: seg_gather's captured (table, seg)."""
     import torch
-    from patchwork_tpu_torch.kernels import fit_cuda
+    from patchwork_tpu_torch.kernels import fit_cuda, seg_cuda
 
     def same(a, b):
         return all(torch.equal(x.view(torch.int32) if x.is_floating_point()
@@ -261,12 +271,52 @@ def redesigned_kernel_checks(dev, fails, sweep_inputs, fit_inputs) -> None:
             fails.check(ok, f"apply_sweep with a shared plan, {label} "
                             f"{'fast' if fast else 'exact'}: differs from its "
                             "plain version or between two runs")
-        print(f"[3 redesigned] apply_sweep {label} B={pts.shape[0]} "
+        # the moments2 sweep about the table's centroids: on the plan the
+        # apply sweeps above used (twice), right after an apply sweep on it,
+        # and with no plan
+        ctab = tab[:, :3].contiguous()
+        ref = fit_cuda.moments2_sweep_plain(pts, state, ctab, trash)
+        runs = [fit_cuda.moments2_sweep(pts, state, ctab, trash, plan)
+                for _ in range(2)]
+        st = state.clone()
+        fit_cuda.apply_sweep(pts, st, tab, trash, False, plan)
+        after = fit_cuda.moments2_sweep(pts, st, ctab, trash, plan)
+        ref_after = fit_cuda.moments2_sweep_plain(pts, st, ctab, trash)
+        alone = fit_cuda.moments2_sweep(pts, state, ctab, trash)
+        torch.cuda.synchronize()
+        ok = (same(runs[0], ref) and same(runs[0], runs[1])
+              and same(alone, ref) and same(after, ref_after)
+              and int(plan.done.abs().sum()) == 0)
+        ms = _time_ms(fit_cuda.moments2_sweep,
+                      (pts, state, ctab, trash, plan), {}, 20)
+        line.append(f"moments2 {ms:.3f} ms {'ok' if ok else 'MISMATCH'}")
+        fails.check(ok, f"moments2_sweep, {label}: differs from its plain "
+                        "version with a shared plan, after an apply sweep "
+                        "on it, without a plan or between two runs")
+        print(f"[3 redesigned] sweeps {label} B={pts.shape[0]} "
               f"N={pts.shape[2]} Sp={sp}, {nodes:.2f} nodes per tile: plan "
               f"{'ok' if ok_plan else 'MISMATCH'} ({t_plan:.3f} ms), "
               + ", ".join(line), flush=True)
         fails.check(ok_plan, f"sweep plan, {label}: differs from its plain "
                              "version or between two runs")
+
+    # seg_gather beyond the main path's shapes: 1, 3 and 8 channels, point
+    # counts that are no multiple of 4 (rows off a 16-byte boundary)
+    table, seg = gather_input
+    for c in (1, 3, 8):
+        tab_c = table[:, :1].expand(-1, c, -1) * torch.arange(
+            1, c + 1, device=dev, dtype=torch.float32)[None, :, None]
+        tab_c = tab_c.contiguous()
+        oks = []
+        for n in (seg.shape[1], seg.shape[1] - 1, seg.shape[1] - 2, 1027):
+            ids = seg[:, :n].contiguous()
+            got = seg_cuda.seg_gather(tab_c, ids)
+            oks.append(same(got, seg_cuda.seg_gather_plain(tab_c, ids))
+                       and same(got, seg_cuda.seg_gather(tab_c, ids)))
+        print(f"[3 redesigned] seg_gather C={c} N={seg.shape[1]}, -1, -2, "
+              f"1027: {'ok' if all(oks) else 'MISMATCH'}", flush=True)
+        fails.check(all(oks), f"seg_gather C={c}: differs from its plain "
+                              "version at some N")
 
     for mode, (args, kw) in sorted(fit_inputs.items()):
         p, g0, num_segs, max_iter = args
@@ -378,6 +428,30 @@ def _time_ms(fn, args, kwargs, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int, pattern: str):
+    """Mean device time per call (torch.profiler) of the kernels whose
+    name matches ``pattern``; None where the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # kernels only: the host-side op of a PyTorch call carries the device
+    # time of the kernels it launched as its own
+    total = sum(getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and re.search(pattern, ev.key))
+    return total / reps / 1e3 if total > 0 else None
+
+
 def scans_per_s(xyz, valid, cfg, plain, reps, warm=True):
     """Scans/s of filter_ground_batched over ``reps`` calls (CUDA events),
     after a warm-up call unless the path has run before."""
@@ -444,8 +518,8 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     import numpy as np
     import torch
     from patchwork_tpu_torch import (
-        PatchworkConfig, RecursivePatchwork, cli, filter_ground,
-        filter_ground_batched)
+        PatchworkConfig, PointCloudProcessor, RecursivePatchwork, cli,
+        filter_ground, filter_ground_batched)
     from patchwork_tpu_torch.core.config import default_lidar_configs
     from patchwork_tpu_torch.fusion.fusion import LidarFusion
     from patchwork_tpu_torch.io.bag import write_mcap_topics
@@ -479,14 +553,17 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     cfg_exact, cfg_fast = PatchworkConfig(), PatchworkConfig(fast_covariance=True)
 
     # (a) fusion, then the engine on the fused clouds
-    fused = [front_end(fused_iac_cloud, N, seed=s, device=dev)
-             for s in range(B)]
+    # no device argument anywhere an entry point is built: the card is the
+    # default, and what comes back must lie on it
+    fused = [front_end(fused_iac_cloud, N, seed=s) for s in range(B)]
     same = all(np.array_equal(a.view(np.int32),
-                              fused_iac_cloud(N, seed=s).view(np.int32))
+                              fused_iac_cloud(N, seed=s,
+                                              device="cpu").view(np.int32))
                for s, a in enumerate(fused))
     clouds0 = iac_three_lidar_scene(N // 3 + 512, seed=0)
-    fuser = LidarFusion(device=dev)
-    front_end(fuser.fuse, clouds0)           # warm-up
+    fuser = LidarFusion()
+    on_default = [fuser.device.type == "cuda",
+                  front_end(fuser.fuse, clouds0).xyz.is_cuda]   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -511,9 +588,12 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     fails.check(iou >= IOU_FAST_MIN, f"fused_iac: fast IoU {iou} < 0.999")
 
     # (b) the API's enhanced filtering
-    rp_cpu = RecursivePatchwork(cfg_exact)
-    sel = front_end(RecursivePatchwork(cfg_exact, device=dev)
-                    .sample_ground_and_obstacles, fused[0])
+    rp_cpu = RecursivePatchwork(cfg_exact, device="cpu")
+    rp = RecursivePatchwork(cfg_exact)
+    on_default += [rp.device.type == "cuda",
+                   rp.segment(fused[0])[0].ground.is_cuda,
+                   not rp_cpu.segment(fused[0][:4096])[0].ground.is_cuda]
+    sel = front_end(rp.sample_ground_and_obstacles, fused[0])
     sel_cpu = rp_cpu.sample_ground_and_obstacles(fused[0])
     ground_rows = {r.tobytes() for r in rp_cpu.filter_ground_points(fused[0])[0]}
 
@@ -528,6 +608,46 @@ def phase7(dev, card: str, fails: Failures) -> dict:
           f"{len(b_card)} (CPU {len(b_cpu)}), selected {len(sel)} = band + "
           f"{n_sample}: {ok}", flush=True)
     fails.check(ok, "sample_ground_and_obstacles differs from the CPU port")
+
+    # the NumPy-in / NumPy-out utilities: with no device each one allocates
+    # on the card, and agrees with device="cpu" (masks and the rotation bit
+    # for bit; sums to 1e-4, which add in another order)
+    pts = demo_point_cloud(N, seed=1)
+    pts[::97] = np.nan
+    clean = PointCloudProcessor.remove_nan_points(pts, device="cpu")
+    plane = ([1.0, 2.0, 0.5], [0.1, 0.2, 0.97])
+    utils = [(PointCloudProcessor.remove_nan_points, pts, (), 0),
+             (PointCloudProcessor.filter_by_distance, pts, (5.0, 30.0), 0),
+             (PointCloudProcessor.filter_by_height, pts, (0.2, 1.7), 0),
+             (PointCloudProcessor.compute_centroid, clean, (), 1e-4),
+             (PointCloudProcessor.compute_covariance, clean, (), 1e-4),
+             (PointCloudProcessor.compute_distances_to_plane, clean, plane,
+              1e-4),
+             (PointCloudProcessor.voxel_grid_filter, clean, (2.0,), 1e-4),
+             (PointCloudProcessor.random_subsample, clean, (2000, 3), None),
+             (RecursivePatchwork.rotate_points_2d, clean, (37.5,), 0),
+             (RecursivePatchwork.remove_ego_vehicle, clean, (4.0,), 0)]
+    bad = []
+    for fn, cloud, args, tol in utils:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = front_end(fn, cloud, *args)
+        ran_on_card = torch.cuda.max_memory_allocated() > base
+        want = fn(cloud, *args, device="cpu")
+        agree = got.shape == want.shape
+        if tol == 0:
+            agree = agree and np.array_equal(got.view(np.int32),
+                                             want.view(np.int32))
+        elif tol is not None:   # a sample is drawn on its device: shape only
+            agree = agree and np.allclose(got, want, rtol=tol, atol=tol)
+        on_default.append(ran_on_card)
+        if not (ran_on_card and agree):
+            bad.append(fn.__name__)
+    print(f"[7b utilities] PointCloudProcessor and the API's static "
+          f"utilities, {len(utils)} calls with no device on N={N}: on the "
+          f"card and equal to device=\"cpu\": {not bad} {bad}", flush=True)
+    fails.check(not bad, f"utilities not on the card or unlike the CPU: {bad}")
 
     with tempfile.TemporaryDirectory() as tmp:
         # (c) the CLI in this process: demo cloud, then a split-terrain frame
@@ -547,8 +667,7 @@ def phase7(dev, card: str, fails: Failures) -> dict:
         want1 = bev_ground_nonground_image(on_card(pts)[0], res.ground,
                                            non_ground, 300, 150, -150.0,
                                            -75.0, 150.0, 75.0)
-        filt = RecursivePatchwork(cfg_exact, device=dev) \
-            .sample_ground_and_obstacles(pts, 1.1, 0.5, seed=0)
+        filt = rp.sample_ground_and_obstacles(pts, 1.1, 0.5, seed=0)
         img2 = read_png(prefix + "_enhanced.png")
         want2 = bev_height_image(*on_card(filt), 300, 150, -150.0, -75.0,
                                  150.0, 75.0)
@@ -590,9 +709,8 @@ def phase7(dev, card: str, fails: Failures) -> dict:
              "--use-patchwork"], cwd=tmp, env=env, capture_output=True,
             text=True, timeout=600)
         proc_s = time.perf_counter() - t0
-        fused0 = LidarFusion(device=dev).fuse(clouds0).to_numpy()
-        want = counts(RecursivePatchwork(cfg_exact, device=dev)
-                      .segment(fused0)[0])
+        fused0 = fuser.fuse(clouds0).to_numpy()
+        want = counts(rp.segment(fused0)[0])
         got = _cli_counts(proc.stdout)
         print(f"[7d cli] python -m patchwork_tpu_torch.cli <3-topic mcap> "
               f"--use-patchwork: rc {proc.returncode}, counts {got} vs "
@@ -617,7 +735,8 @@ def phase7(dev, card: str, fails: Failures) -> dict:
             before = dict(front)
             t0 = time.perf_counter()
             results, node = front_end(run_launch, load_launch(desc_path),
-                                      log=lambda s: None, device=dev)
+                                      log=lambda s: None)
+            on_default.append(node.device.type == "cuda")
             dt = time.perf_counter() - t0
             got_l = {k: front[k] - before[k] for k in front}
             ref = filter_ground_batched(*on_card(np.stack(frames)),
@@ -632,7 +751,9 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     # (f) the streaming node over 16 velodyne frames
     frames = [velodyne_like_cloud(N, seed=s) for s in range(2 * B)]
     for bs in (1, B):
-        node = PatchworkNode(capacity=N, batch_size=bs, device=dev)
+        node = PatchworkNode(capacity=N, batch_size=bs)
+        on_default += [node.device.type == "cuda",
+                       node._pad(frames[:1], 1)[0].is_cuda]
         if bs == 1:
             ref = np.concatenate([
                 filter_ground_batched(*on_card(np.stack(frames[i:i + B])),
@@ -652,7 +773,11 @@ def phase7(dev, card: str, fails: Failures) -> dict:
         fails.check(ok, f"node batch_size {bs}: results missing or masks "
                         "differ")
 
-    print(f"[7 front ends] launches {front}", flush=True)
+    print(f"[7 front ends] built with no device argument, on the card: "
+          f"{all(on_default)} ({len(on_default)} checks); launches {front}",
+          flush=True)
+    fails.check(all(on_default), "an entry point built with no device "
+                                 f"argument is not on the card: {on_default}")
     for fam, n in front.items():
         fails.check(n > 0, f"kernel family {fam} never launched by the "
                            "front ends")
@@ -860,7 +985,24 @@ def main() -> int:
     stamp("3 redesigned")
     redesigned_kernel_checks(
         dev, fails, sweep_inputs,
-        {mode: captured[("fit_level", mode)][2:] for mode in ("exact", "fast")})
+        {mode: captured[("fit_level", mode)][2:] for mode in ("exact", "fast")},
+        captured[("seg_gather", "exact")][2])
+
+    # device times of the moments2 sweep and seg_gather, and of the
+    # library call beside seg_gather (events read max(host, device) a call)
+    name, module, args, kw = captured[("moments2_sweep", "exact")]
+    extra["moments2_sweep"] = {"device_ms": _device_ms(
+        lambda: fit_cuda.moments2_sweep(*args, **kw), 50, "pw_m2")}
+    table, seg = captured[("seg_gather", "exact")][2]
+    idx = seg.long()[:, None, :].expand(-1, table.shape[1], -1)
+    extra["seg_gather"] = {
+        "device_ms": _device_ms(lambda: seg_cuda.seg_gather(table, seg), 100,
+                                "pw_gather"),
+        "library_device_ms": _device_ms(lambda: torch.gather(table, 2, idx),
+                                        100, r"^(?!.*pw_).*gather")}
+    print(f"[3 device] moments2_sweep {extra['moments2_sweep']}; seg_gather "
+          f"{extra['seg_gather']} (ms of device time, torch.profiler)",
+          flush=True)
 
     # kernel 5 against the loop of sweeps it stands for, on the same level-0
     # fit (the loop is exact two-pass in both modes; fit_level honours fast)
@@ -898,7 +1040,7 @@ def main() -> int:
             masks[(scene, mode)] = g1
             fails.check(torch.equal(g1, g2),
                         f"{scene} {mode}: two kernel runs differ")
-    res_api = RecursivePatchwork(cfg_exact, device=dev).filter_ground_points(
+    res_api = RecursivePatchwork(cfg_exact).filter_ground_points(
         velo[0][0].cpu().numpy())
     launches_level = dict(fit_cuda.LAUNCHES)
 

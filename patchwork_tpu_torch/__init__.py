@@ -6,8 +6,10 @@ reference.  This package imports torch and numpy only.  Its main path is
 :func:`filter_ground_batched`: binning, the level loop, and the CUDA
 kernels of ``kernels/fit_cuda.py`` on a CUDA tensor (their plain PyTorch
 versions on a CPU tensor).  The front ends — fusion, the API, the
-processor, the streaming node, the launch descriptor and the CLI — take
-an explicit device and run on that path.
+processor, the streaming node, the launch descriptor and the CLI — run on
+the card unless the caller passes ``device="cpu"`` (the processor and the
+API's static utilities per call, NumPy in and out); without a card they
+raise instead of falling back.
 """
 
 from .api import RecursivePatchwork

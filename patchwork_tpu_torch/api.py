@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .core.config import PatchworkConfig
+from .core.device import resolve_device
 from .core.types import GroundResult
 from .ops.pointcloud import ego_mask as _ego_mask
 from .ops.pointcloud import height_band_mask, rotate_2d
@@ -66,12 +67,13 @@ def sample_ground_and_obstacles_masks(
 
 class RecursivePatchwork:
     """Drop-in style replacement for the reference RecursivePatchwork class,
-    running on an explicit ``device`` (a CUDA device runs the kernels)."""
+    running on the card (the kernels) unless ``device="cpu"`` asks for the
+    plain versions; without a card the default raises."""
 
     def __init__(self, config: PatchworkConfig | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.config = config or PatchworkConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     # -- config (hpp:66-67) --
     def set_config(self, config: PatchworkConfig) -> None:
@@ -88,16 +90,22 @@ class RecursivePatchwork:
         return points[np.isfinite(points).all(axis=1)]
 
     @staticmethod
-    def rotate_points_2d(points: np.ndarray, angle_degrees: float) -> np.ndarray:
-        """2D rotation about +Z (cpp:37-54)."""
-        return rotate_2d(torch.from_numpy(np.asarray(points, np.float32)),
-                         angle_degrees).numpy()
+    def rotate_points_2d(points: np.ndarray, angle_degrees: float,
+                         device: torch.device | str | None = None) -> np.ndarray:
+        """2D rotation about +Z (cpp:37-54), on ``device`` as the class:
+        the card for None, the CPU only when named."""
+        xyz = torch.from_numpy(np.ascontiguousarray(points, np.float32))
+        return rotate_2d(xyz.to(resolve_device(device)),
+                         angle_degrees).cpu().numpy()
 
     @staticmethod
-    def remove_ego_vehicle(points: np.ndarray, radius: float = 2.5) -> np.ndarray:
-        """Drop points with 2D distance <= radius (cpp:64-75)."""
-        points = np.asarray(points, np.float32)
-        return points[_ego_mask(torch.from_numpy(points), radius).numpy()]
+    def remove_ego_vehicle(points: np.ndarray, radius: float = 2.5,
+                           device: torch.device | str | None = None) -> np.ndarray:
+        """Drop points with 2D distance <= radius (cpp:64-75), the mask
+        computed on ``device`` as the class."""
+        points = np.ascontiguousarray(points, np.float32)
+        xyz = torch.from_numpy(points).to(resolve_device(device))
+        return points[_ego_mask(xyz, radius).cpu().numpy()]
 
     def _pad(self, points: np.ndarray):
         points = np.asarray(points, np.float32)[:, :3]

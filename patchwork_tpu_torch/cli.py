@@ -216,10 +216,9 @@ def resolve_device(name: str) -> torch.device:
         if not torch.cuda.is_available():
             sys.exit(f"--device {name}: no CUDA device is available "
                      "(pass --device cpu to run on the CPU)")
-        from .core.device import cuda_device
+    from .core.device import resolve_device as resolve
 
-        return cuda_device(device.index or 0)
-    return device
+    return resolve(device)
 
 
 def main(argv=None) -> int:

@@ -3,7 +3,8 @@
 Counterpart of ``patchwork_tpu/core/device.py``.  Unlike the reference's
 CudaManager (cuda/cuda_interface.cu:44-95) nothing here falls back to the
 CPU: :func:`cuda_device` raises when there is no card, and every engine
-entry point takes an explicit ``device``.
+entry point runs on the card unless the caller asks for the CPU
+(:func:`resolve_device`).
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import subprocess
 
 import torch
 
-__all__ = ["pin_fp32", "true_div", "cuda_device", "card_info"]
+__all__ = ["pin_fp32", "true_div", "cuda_device", "resolve_device",
+           "card_info"]
 
 
 def pin_fp32() -> None:
@@ -43,6 +45,18 @@ def cuda_device(index: int = 0) -> torch.device:
         raise RuntimeError("no CUDA device is available")
     pin_fp32()
     return torch.device("cuda", index)
+
+
+def resolve_device(device: torch.device | str | None = None) -> torch.device:
+    """The device an entry point runs on: the card for ``None`` or a CUDA
+    device (:func:`cuda_device`, which raises without a card), the CPU only
+    when the caller names it."""
+    if device is None:
+        return cuda_device()
+    device = torch.device(device)
+    if device.type == "cuda":
+        return cuda_device(device.index or 0)
+    return device
 
 
 def card_info() -> str:

@@ -17,6 +17,8 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["PointCloud", "ScanBatch", "GroundResult", "as_xyz", "tensor_leaves"]
 
 
@@ -37,8 +39,10 @@ class PointCloud:
 
     @staticmethod
     def from_numpy(pts: np.ndarray, capacity: Optional[int] = None,
-                   device: torch.device | str = "cpu") -> "PointCloud":
-        """Pad an (n, >=3) float array into a fixed-capacity PointCloud."""
+                   device: torch.device | str | None = None) -> "PointCloud":
+        """Pad an (n, >=3) float array into a fixed-capacity PointCloud on
+        ``device`` (the card when none is given)."""
+        device = resolve_device(device)
         pts = np.asarray(pts, dtype=np.float32)
         if pts.ndim != 2 or pts.shape[1] < 3:
             raise ValueError(f"expected (n, >=3) array, got {pts.shape}")

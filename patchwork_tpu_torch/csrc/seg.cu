@@ -6,10 +6,18 @@
 //   pw_seg_minmax  seg_minmax_pallas -> _minmax_kernel (135-199)
 //
 // On the TPU both are one-hot contractions over a VMEM tile of points.  On
-// the H100 a gather is an indexed load: one thread per point reads its
-// segment's C table entries (the table is a few KB and stays in L1/L2), so
-// it is bound by the point-sized traffic, 4 bytes of id in and 4 C bytes
-// out per point.  Min and max are integer atomics on order-preserving keys
+// the H100 a gather is an indexed load, bound by the point-sized traffic:
+// 4 bytes of id in and 4 C bytes out per point.  So the kernel moves those
+// bytes 16 at a time: a thread takes four consecutive points, one 16-byte
+// load of ids and one 16-byte store per channel, and the scan's (C, S)
+// table (3 KB on the main path) is staged once per block in shared memory,
+// where the indexed reads cost no memory transaction.  A block takes 1024
+// points, so B = 8 scans of 131072 points are 1024 blocks, the 132 SMs'
+// resident blocks once over.  Where N is not a multiple of 4 (or a pointer
+// is not 16-byte aligned) the rows are not aligned and the same block takes
+// its 1024 points one per thread, four times; a table above 48 KB is read
+// through the read-only cache instead.  The result is exact in any order.
+// Min and max are integer atomics on order-preserving keys
 // (common.cuh), which are exact in any order: each block reduces a chunk of
 // one scan's points into a shared-memory (2, C, S) table and then updates
 // global memory once per touched bin.  Bound by the shared atomics, 2 C per
@@ -18,17 +26,48 @@
 
 #define PW_MINMAX_CHUNK 4096
 
-// table (B, C, S), seg (B, N) -> out (B, C, N)
-__global__ void pw_gather_kernel(const float* __restrict__ table,
-                                 const int* __restrict__ seg,
-                                 float* __restrict__ out, int C, int N, int S) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  int b = blockIdx.y;
-  int s = seg[(size_t)b * N + i];
+#define PW_GATHER_THREADS 256
+#define PW_GATHER_POINTS (4 * PW_GATHER_THREADS)   // per block
+#define PW_GATHER_SMEM_LIMIT (48 * 1024)
+
+// table (B, C, S), seg (B, N) -> out (B, C, N).  VEC: N % 4 == 0 and seg,
+// out 16-byte aligned.  STAGE: the scan's table in shared memory.
+template <bool VEC, bool STAGE>
+__global__ void __launch_bounds__(PW_GATHER_THREADS)
+    pw_gather_kernel(const float* __restrict__ table,
+                     const int* __restrict__ seg, float* __restrict__ out,
+                     int C, int N, int S) {
+  extern __shared__ float stab[];  // (C, S) when STAGE
+  int b = blockIdx.y, t = threadIdx.x;
   const float* T = table + (size_t)b * C * S;
+  const int* G = seg + (size_t)b * N;
   float* O = out + (size_t)b * C * N;
-  for (int c = 0; c < C; ++c) O[(size_t)c * N + i] = T[(size_t)c * S + s];
+  if (STAGE) {
+    for (int j = t; j < C * S; j += PW_GATHER_THREADS) stab[j] = T[j];
+    __syncthreads();
+  }
+  auto row = [&](int c, int s) {
+    return STAGE ? stab[c * S + s] : __ldg(T + (size_t)c * S + s);
+  };
+  int base = blockIdx.x * PW_GATHER_POINTS;
+  if (VEC) {
+    int i = base + 4 * t;
+    if (i >= N) return;
+    int4 s = *reinterpret_cast<const int4*>(G + i);
+    for (int c = 0; c < C; ++c) {
+      float4 v = make_float4(row(c, s.x), row(c, s.y), row(c, s.z),
+                             row(c, s.w));
+      *reinterpret_cast<float4*>(O + (size_t)c * N + i) = v;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      int i = base + q * PW_GATHER_THREADS + t;
+      if (i >= N) break;
+      int s = G[i];
+      for (int c = 0; c < C; ++c) O[(size_t)c * N + i] = row(c, s);
+    }
+  }
 }
 
 // work (B, 2, C, S) int keys: row block 0 the mins, 1 the maxs
@@ -79,9 +118,24 @@ __global__ void pw_minmax_finish(const int* __restrict__ work,
 
 PW_EXPORT int pw_seg_gather(const float* table, const int* seg, float* out,
                             int B, int C, int N, int S, void* stream) {
-  dim3 grid((N + 255) / 256, B);
-  pw_gather_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(table, seg, out,
-                                                          C, N, S);
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid((N + PW_GATHER_POINTS - 1) / PW_GATHER_POINTS, B);
+  bool vec = N % 4 == 0 && (uintptr_t)seg % 16 == 0 && (uintptr_t)out % 16 == 0;
+  size_t smem = (size_t)C * S * sizeof(float);
+  bool stage = smem <= PW_GATHER_SMEM_LIMIT;
+  if (!stage) smem = 0;
+  if (vec && stage)
+    pw_gather_kernel<true, true><<<grid, PW_GATHER_THREADS, smem, st>>>(
+        table, seg, out, C, N, S);
+  else if (vec)
+    pw_gather_kernel<true, false><<<grid, PW_GATHER_THREADS, 0, st>>>(
+        table, seg, out, C, N, S);
+  else if (stage)
+    pw_gather_kernel<false, true><<<grid, PW_GATHER_THREADS, smem, st>>>(
+        table, seg, out, C, N, S);
+  else
+    pw_gather_kernel<false, false><<<grid, PW_GATHER_THREADS, 0, st>>>(
+        table, seg, out, C, N, S);
   return (int)cudaGetLastError();
 }
 

@@ -29,9 +29,13 @@
 // ring of staged tiles filled by 16-byte asynchronous copies was measured
 // slower (more registers, fewer blocks per SM) and was not kept.
 //
-// pw_moments2_sweep and pw_seg_sum keep the dense scheme: the thread of node
-// s walks the tile's points (pw_tile_accumulate) and a second kernel adds
-// the (tiles, R, Sp) partials in tile order (pw_reduce_tiles).
+// pw_moments2_sweep is the same one launch over the same plan, with the same
+// tail (pw_tile_finish, tile_sums.cuh): 20 bytes read per point, six rows.
+//
+// pw_seg_sum keeps the dense scheme (its ids change from call to call, so
+// it has no plan to reuse): the thread of node s walks the tile's points
+// (pw_tile_accumulate) and a second kernel adds the (tiles, R, Sp) partials
+// in tile order (pw_reduce_tiles), as do the sums of level.cu.
 #include "common.cuh"
 #include "tile_sums.cuh"
 
@@ -98,7 +102,6 @@ __global__ void __launch_bounds__(PW_TILE)
   float* O = out + (size_t)b * R * sp;
 
   int K = pw_tile_runs(tile, pl, sstart, sdest);
-  if (t == 0) nfull = 0;
   float x = P[i], y = P[(size_t)N + i], z = P[2 * (size_t)N + i];
   float segf = S[3 * (size_t)N + i];
   int s = (int)segf;
@@ -131,36 +134,8 @@ __global__ void __launch_bounds__(PW_TILE)
   }
   pw_tile_compact_sums<R>(vals, sstart, sdest, v, (int)pl.pos[i], K, part);
 
-  // nodes with no point sum to +0.0; tile 0 writes them
-  if (tile == 0) {
-    for (int n = t; n < sp; n += PW_TILE) {
-      if (pl.node_off[n + 1] == pl.node_off[n]) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) O[r * sp + n] = 0.f;
-      }
-    }
-  }
-  // count this tile's partials per node; whoever completes a node sees all
-  // its partials and runs its chains
-  __threadfence();
-  __syncthreads();
-  if (t < K) {
-    int n = pl.tile_node[(size_t)tile * PW_TILE + t];
-    int want = pl.node_off[n + 1] - pl.node_off[n];
-    if (atomicAdd(&done[(size_t)b * sp + n], 1) == want - 1) {
-      full[atomicAdd(&nfull, 1)] = n;
-      done[(size_t)b * sp + n] = 0;
-    }
-  }
-  __syncthreads();
-  int nf = nfull;
-  if (nf == 0) return;
-  __threadfence();
-  for (int j = t; j < nf * R; j += PW_TILE) {
-    int q = j / R, r = j - q * R;
-    int n = full[q];
-    O[r * sp + n] = pw_chain(part, pl.node_off[n], pl.node_off[n + 1], R, r);
-  }
+  pw_tile_finish<R>(tile, K, pl, part, O, done + (size_t)b * sp, sp, full,
+                    &nfull);
 }
 
 __global__ void __launch_bounds__(PW_TILE)
@@ -185,19 +160,31 @@ __global__ void __launch_bounds__(PW_TILE)
                             pw_plan_scan_of(plan, blockIdx.y, N, sp, cap));
 }
 
-__global__ void pw_m2_partials(const float* __restrict__ pts,
-                               const float* __restrict__ state,
-                               const float* __restrict__ ctab,
-                               float* __restrict__ partial, int N, int sp,
-                               int trash) {
-  __shared__ float vals[6][PW_TILE];
-  __shared__ int segs[PW_TILE];
-  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
+// One tile of one scan per block, as pw_apply_kernel: the six centered
+// products of each point (fit_pallas.py:1338-1355), summed per node over
+// the plan.  It shares the plan's done counts and partials with the apply
+// sweep, which runs before and after it on the same stream.
+__global__ void __launch_bounds__(PW_TILE)
+    pw_m2_kernel(const float* __restrict__ pts,
+                 const float* __restrict__ state,
+                 const float* __restrict__ ctab, PwPlan plan, float* partial,
+                 float* __restrict__ out, int* done, int N, int sp, int cap,
+                 int trash) {
+  constexpr int R = 6;
+  __shared__ float vals[R * PW_TILE];
+  __shared__ int sstart[PW_TILE + 1];
+  __shared__ int sdest[PW_TILE];
+  __shared__ int full[PW_TILE];
+  __shared__ int nfull;
+  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x;
   size_t i = (size_t)tile * PW_TILE + t;
   const float* P = pts + (size_t)b * 8 * N;
   const float* S = state + (size_t)b * 4 * N;
   const float* C = ctab + (size_t)b * 3 * sp;
+  PwPlan pl = pw_plan_scan_of(plan, b, N, sp, cap);
+  float* part = partial + (size_t)b * cap * R;
 
+  int K = pw_tile_runs(tile, pl, sstart, sdest);
   float x = P[i], y = P[(size_t)N + i], z = P[2 * (size_t)N + i];
   float segf = S[3 * (size_t)N + i];
   int s = (int)segf;
@@ -206,16 +193,16 @@ __global__ void pw_m2_partials(const float* __restrict__ pts,
   float dx = (x - C[s]) * g;
   float dy = (y - C[sp + s]) * g;
   float dz = (z - C[2 * sp + s]) * g;
-  vals[0][t] = dx * dx;
-  vals[1][t] = dx * dy;
-  vals[2][t] = dx * dz;
-  vals[3][t] = dy * dy;
-  vals[4][t] = dy * dz;
-  vals[5][t] = dz * dz;
-  segs[t] = s;
-  __syncthreads();
-  pw_tile_accumulate<6>(vals, segs, sp,
-                        partial + ((size_t)b * nt + tile) * 6 * sp);
+  float v[R];
+  v[0] = dx * dx;
+  v[1] = dx * dy;
+  v[2] = dx * dz;
+  v[3] = dy * dy;
+  v[4] = dy * dz;
+  v[5] = dz * dz;
+  pw_tile_compact_sums<R>(vals, sstart, sdest, v, (int)pl.pos[i], K, part);
+  pw_tile_finish<R>(tile, K, pl, part, out + (size_t)b * R * sp,
+                    done + (size_t)b * sp, sp, full, &nfull);
 }
 
 PW_EXPORT int pw_seg_sum(const float* rows, const int* seg, float* partial,
@@ -241,11 +228,11 @@ PW_EXPORT int pw_seg_sum(const float* rows, const int* seg, float* partial,
 // The plan of node-id row `row` of rows (B, nrows, N); bitmap is zeroed by
 // the caller, start, tile_node and dest too where their unused tails are
 // compared.
-PW_EXPORT int pw_sweep_plan(const float* rows, int nrows, int row,
-                            unsigned char* pos, unsigned char* start,
-                            int* tile_node, int* tile_off, unsigned* bitmap,
-                            int* node_off, int* dest, int B, int N, int sp,
-                            int cap, void* stream) {
+PW_EXPORT int pw_sweep_plan(const float* rows, unsigned char* pos,
+                            unsigned char* start, int* tile_node,
+                            int* tile_off, unsigned* bitmap, int* node_off,
+                            int* dest, int nrows, int row, int B, int N,
+                            int sp, int cap, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   PwPlan plan = {pos, start, tile_node, tile_off, bitmap, node_off, dest};
   dim3 grid(N / PW_TILE, B);
@@ -276,13 +263,15 @@ PW_EXPORT int pw_apply_sweep(const float* pts, float* state, const float* tab,
 }
 
 PW_EXPORT int pw_moments2_sweep(const float* pts, const float* state,
-                                const float* ctab, float* partial, float* out,
-                                int B, int N, int sp, int trash,
+                                const float* ctab, unsigned char* pos,
+                                unsigned char* start, int* tile_node,
+                                int* tile_off, int* node_off, int* dest,
+                                int* done, float* partial, float* out, int B,
+                                int N, int sp, int cap, int trash,
                                 void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+  PwPlan plan = {pos, start, tile_node, tile_off, nullptr, node_off, dest};
   dim3 grid(N / PW_TILE, B);
-  pw_m2_partials<<<grid, PW_TILE, 0, st>>>(pts, state, ctab, partial, N, sp,
-                                           trash);
-  pw_reduce_tiles(partial, out, B, N / PW_TILE, 6, sp, st);
+  pw_m2_kernel<<<grid, PW_TILE, 0, (cudaStream_t)stream>>>(
+      pts, state, ctab, plan, partial, out, done, N, sp, cap, trash);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Sweep plan and compact tile sums, shared by the apply sweep (sweeps.cu)
-// and the one-launch fit loop (fitloop.cu).
+// Sweep plan and compact tile sums, shared by the apply sweep and the
+// moments2 sweep (sweeps.cu) and the one-launch fit loop (fitloop.cu).
 //
 // The order of every per-node sum is fixed (common.cuh): inside a tile the
 // points of node s are added in point order from +0.0, then the tiles'
@@ -254,4 +254,48 @@ __device__ __forceinline__ float pw_chain(const float* part, int lo, int hi,
   }
   for (; e < n; ++e) acc += __ldcg(p + (size_t)e * R);
   return acc;
+}
+
+// The tail of a one-launch sweep, after pw_tile_compact_sums wrote this
+// tile's K x R partials to part (the scan's).  Nodes with no point sum to
+// +0.0, and tile 0 writes them.  Then the block counts its partials per
+// node in done (the scan's sp counts, zero between launches): the block
+// that writes a node's last partial sees them all, sets the count back to
+// zero (so the next sweep in stream order, of either kind, can share it)
+// and runs that node's R chains into O (R, sp).  full: PW_TILE shared ints;
+// nfull: one shared int.
+template <int R>
+__device__ __forceinline__ void pw_tile_finish(int tile, int K, PwPlan pl,
+                                               const float* part, float* O,
+                                               int* done, int sp, int* full,
+                                               int* nfull) {
+  int t = threadIdx.x;
+  if (t == 0) *nfull = 0;
+  if (tile == 0) {
+    for (int n = t; n < sp; n += PW_TILE) {
+      if (pl.node_off[n + 1] == pl.node_off[n]) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) O[r * sp + n] = 0.f;
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (t < K) {
+    int n = pl.tile_node[(size_t)tile * PW_TILE + t];
+    int want = pl.node_off[n + 1] - pl.node_off[n];
+    if (atomicAdd(&done[n], 1) == want - 1) {
+      full[atomicAdd(nfull, 1)] = n;
+      done[n] = 0;
+    }
+  }
+  __syncthreads();
+  int nf = *nfull;
+  if (nf == 0) return;
+  __threadfence();
+  for (int j = t; j < nf * R; j += PW_TILE) {
+    int q = j / R, r = j - q * R;
+    int n = full[q];
+    O[r * sp + n] = pw_chain(part, pl.node_off[n], pl.node_off[n + 1], R, r);
+  }
 }

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.config import LidarConfig, default_lidar_configs
+from ..core.device import resolve_device
 from ..core.types import PointCloud
 from ..ops.pointcloud import ego_mask, transform_4x4
 
@@ -67,13 +68,14 @@ def fuse_stacked(xyz: torch.Tensor, valid: torch.Tensor,
 
 class LidarFusion:
     """The reference LidarFusion class (include/lidar_fusion.hpp:10-44) on
-    an explicit ``device``, with the default 3-LiDAR IAC layout."""
+    the card, or on the CPU when ``device="cpu"`` is given, with the default
+    3-LiDAR IAC layout."""
 
     def __init__(self, configs: Sequence[LidarConfig] | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.configs = list(configs) if configs is not None else list(
             default_lidar_configs())
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def add_lidar(self, config: LidarConfig) -> None:
         self.configs.append(config)

@@ -103,9 +103,10 @@ def iac_three_lidar_scene(points_per_sensor: int = 4096, seed: int = 0):
 
 
 def fused_iac_cloud(num_points: int = 131072, seed: int = 0,
-                    device: torch.device | str = "cpu") -> np.ndarray:
+                    device: torch.device | str | None = None) -> np.ndarray:
     """One merged 3-sensor IAC cloud of exactly ``num_points`` world-frame
-    points: :func:`iac_three_lidar_scene` fused on ``device`` by the port's
+    points: :func:`iac_three_lidar_scene` fused on ``device`` (the card when
+    none is given) by the port's
     LidarFusion (stacked extrinsics + ego masks), ego-removed points
     dropped.  Equal, bit for bit, to the JAX generator's output."""
     from ..core.config import default_lidar_configs

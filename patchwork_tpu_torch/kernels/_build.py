@@ -43,10 +43,9 @@ _SIGNATURES = {
     "pw_seg_order_stat": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                           _VP],
     "pw_seg_sum": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "pw_sweep_plan": [_VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                      _I, _I, _VP],
+    "pw_sweep_plan": [_VP] * 8 + [_I] * 6 + [_VP],
     "pw_apply_sweep": [_VP] * 12 + [_I] * 6 + [_VP],
-    "pw_moments2_sweep": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pw_moments2_sweep": [_VP] * 12 + [_I] * 5 + [_VP],
     "pw_remap_r1": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "pw_remap_r1b": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_remap_nodes": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],

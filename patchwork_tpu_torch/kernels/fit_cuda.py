@@ -30,8 +30,9 @@ uses float atomics, so two runs give the same bits, and every plain
 version below adds in exactly the kernel's order: on the same device a
 kernel and its plain version agree bit for bit.  A tile that holds no point
 of a node adds +0.0 to that node's sum, which changes no bit, so the apply
-sweep and ``fit_level`` add only over the tiles that do hold it, found once
-per level as a :class:`SweepPlan` (the node ids are fixed during a fit).
+sweep, the moments2 sweep and ``fit_level`` add only over the tiles that do
+hold it, found once per level as a :class:`SweepPlan` (the node ids are
+fixed during a fit).
 
 Every wrapper takes the plain version only for a tensor on the CPU; on a
 CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts kernel
@@ -89,15 +90,16 @@ def _on_card(*tensors: torch.Tensor | None) -> bool:
     """False for CPU tensors (plain version); True for CUDA tensors, after
     checking they share one device and are contiguous.  Anything else raises."""
     ts = [t for t in tensors if t is not None]
-    dev = ts[0].device
-    if dev.type == "cpu":
+    first = ts[0]
+    if not first.is_cuda:
+        if first.device.type != "cpu":
+            raise ValueError(f"unsupported device {first.device}")
         if any(t.device.type != "cpu" for t in ts):
             raise ValueError("tensors on mixed devices")
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    index = first.get_device()
     for t in ts:
-        if t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError("tensors on mixed devices")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
@@ -110,14 +112,26 @@ def _f32(*ts: torch.Tensor) -> None:
             raise TypeError(f"expected float32, got {t.dtype}")
 
 
-def _launch(family: str, fn_name: str, *args) -> None:
+_C_FUNCTIONS: dict = {}     # C entry point -> its ctypes function, at first use
+
+
+def _c_function(fn_name: str):
     from . import _build
 
-    fn = getattr(_build.load(), fn_name)
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
-            else (None if a is None else a) for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*conv, stream)
+    fn = _C_FUNCTIONS[fn_name] = getattr(_build.load(), fn_name)
+    return fn
+
+
+def _launch(family: str, fn_name: str, tensors: tuple, *scalars) -> None:
+    """Call C entry point ``fn_name(pointers..., scalars..., stream)`` on the
+    current stream of the tensors' device; ``tensors`` holds the pointer
+    arguments (None passes a null pointer), the first one a tensor.  Raises
+    on a failed launch and counts a good one for ``family``."""
+    fn = _C_FUNCTIONS.get(fn_name) or _c_function(fn_name)
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    # the current stream's handle, without building a Stream object
+    stream = torch._C._cuda_getCurrentRawStream(tensors[0].get_device())
+    rc = fn(*ptrs, *scalars, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc}")
     LAUNCHES[family] += 1
@@ -216,8 +230,8 @@ def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
                        device=vals.device)
     lo = torch.empty((b, num_segs), dtype=torch.int32, device=vals.device)
     kw = torch.empty_like(lo)
-    _launch("seg_order_stat", "pw_seg_order_stat", vals, seg, valid, k, out,
-            hist, lo, kw, b, n, num_segs)
+    _launch("seg_order_stat", "pw_seg_order_stat",
+            (vals, seg, valid, k, out, hist, lo, kw), b, n, num_segs)
     return out
 
 
@@ -260,7 +274,7 @@ def seg_sum(rows: torch.Tensor, seg: torch.Tensor, num_segs: int) -> torch.Tenso
     partial = torch.empty((b, n // TILE, r, num_segs), dtype=torch.float32,
                           device=rows.device)
     out = torch.empty((b, r, num_segs), dtype=torch.float32, device=rows.device)
-    _launch("seg_sum", "pw_seg_sum", rows, seg, partial, out, b, r, n,
+    _launch("seg_sum", "pw_seg_sum", (rows, seg, partial, out), b, r, n,
             num_segs)
     return out
 
@@ -316,6 +330,16 @@ class SweepPlan:
     def tensors(self):
         return (self.pos, self.start, self.tile_node, self.tile_off,
                 self.node_off, self.dest)
+
+    def sweep_tensors(self):
+        """What a one-launch sweep takes: the plan and its counts."""
+        return (self.pos, self.start, self.tile_node, self.tile_off,
+                self.node_off, self.dest, self.done)
+
+    def fits(self, pts: torch.Tensor, sp: int) -> bool:
+        """Whether this is a plan for (B, 8, N) points ``pts`` and width sp."""
+        return (self.sp == sp and self.pos.shape == (pts.shape[0], pts.shape[2])
+                and self.pos.device == pts.device)
 
 
 def _plan_cap(n: int, sp: int) -> int:
@@ -382,9 +406,9 @@ def sweep_plan(state: torch.Tensor, sp: int) -> SweepPlan:
                          f"got {tuple(state.shape)}")
     b, _, n = state.shape
     plan, bitmap = _plan_buffers(b, n, sp, state.device)
-    _launch("sweep_plan", "pw_sweep_plan", state, 4, 3, plan.pos, plan.start,
-            plan.tile_node, plan.tile_off, bitmap, plan.node_off, plan.dest,
-            b, n, sp, plan.cap)
+    _launch("sweep_plan", "pw_sweep_plan",
+            (state, plan.pos, plan.start, plan.tile_node, plan.tile_off,
+             bitmap, plan.node_off, plan.dest), 4, 3, b, n, sp, plan.cap)
     return plan
 
 
@@ -478,14 +502,12 @@ def apply_sweep(pts: torch.Tensor, state: torch.Tensor, tab: torch.Tensor,
     r = _sweep_rows(fast)
     if plan is None:
         plan = sweep_plan(state, sp)
-    elif (plan.sp != sp or plan.pos.shape != (b, n)
-          or plan.pos.device != pts.device):
+    elif not plan.fits(pts, sp):
         raise ValueError("the sweep plan does not fit these points")
-    out = torch.empty((b, r, sp), dtype=torch.float32, device=pts.device)
-    _launch("apply_sweep", "pw_apply_sweep", pts, state, tab, plan.pos,
-            plan.start, plan.tile_node, plan.tile_off, plan.node_off,
-            plan.dest, plan.done, plan.partial(r), out, b, n, sp, plan.cap,
-            trash, int(fast))
+    out = pts.new_empty((b, r, sp))
+    _launch("apply_sweep", "pw_apply_sweep",
+            (pts, state, tab, *plan.sweep_tensors(), plan.partial(r), out),
+            b, n, sp, plan.cap, trash, int(fast))
     return out
 
 
@@ -494,7 +516,7 @@ def apply_sweep(pts: torch.Tensor, state: torch.Tensor, tab: torch.Tensor,
 # the level kernel's `m2_sweep`, fit_pallas.py:1338-1355)
 # ---------------------------------------------------------------------------
 
-def moments2_sweep_plain(pts, state, ctab, trash):
+def moments2_sweep_plain(pts, state, ctab, trash, plan=None):
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
     seg, act = _live(state, trash)
     g = state[:, 0] * act
@@ -507,11 +529,22 @@ def moments2_sweep_plain(pts, state, ctab, trash):
 
 
 def moments2_sweep(pts: torch.Tensor, state: torch.Tensor, ctab: torch.Tensor,
-                   trash: int) -> torch.Tensor:
+                   trash: int, plan: SweepPlan | None = None) -> torch.Tensor:
     """Centered second-moment sums [xx, xy, xz, yy, yz, zz] per node of the
     live ground mask about the node centroids ctab (B, 3, Sp) -> (B, 6, Sp).
 
-    CUDA: the same tile scheme as :func:`apply_sweep`; bound by memory.
+    ``plan`` is :func:`sweep_plan` of ``state``, the one the fit's apply
+    sweeps use; without one the sweep builds its own (three more launches
+    and two allocations), so a caller that sweeps in a loop passes it.
+
+    CUDA: one launch over the plan, as :func:`apply_sweep` and with its
+    tail: a block per (tile, scan) stages six products per point at the
+    point's planned place, adds each present node's run in point order and
+    writes K x 6 partials; the block that writes a node's last partial adds
+    them in tile order.  Bound by memory (20 bytes read per point), and
+    below that by the latency of the in-order sums.  The plan's counts and
+    partials are shared with the apply sweep: the two alternate on one
+    stream and each leaves the counts at zero.
     """
     if not _on_card(pts, state, ctab):
         return moments2_sweep_plain(pts, state, ctab, trash)
@@ -519,11 +552,16 @@ def moments2_sweep(pts: torch.Tensor, state: torch.Tensor, ctab: torch.Tensor,
     _f32(ctab)
     b, _, n = pts.shape
     sp = ctab.shape[2]
-    partial = torch.empty((b, n // TILE, 6, sp), dtype=torch.float32,
-                          device=pts.device)
-    out = torch.empty((b, 6, sp), dtype=torch.float32, device=pts.device)
-    _launch("moments2_sweep", "pw_moments2_sweep", pts, state, ctab, partial,
-            out, b, n, sp, trash)
+    if ctab.shape != (b, 3, sp):
+        raise ValueError(f"ctab must be ({b}, 3, Sp), got {tuple(ctab.shape)}")
+    if plan is None:
+        plan = sweep_plan(state, sp)
+    elif not plan.fits(pts, sp):
+        raise ValueError("the sweep plan does not fit these points")
+    out = pts.new_empty((b, 6, sp))
+    _launch("moments2_sweep", "pw_moments2_sweep",
+            (pts, state, ctab, *plan.sweep_tensors(), plan.partial(6), out),
+            b, n, sp, plan.cap, trash)
     return out
 
 
@@ -554,7 +592,7 @@ def remap_r1(pts: torch.Tensor, trash: int, sp: int, fast: bool) -> torch.Tensor
     partial = torch.empty((b, n // TILE, r, sp), dtype=torch.float32,
                           device=pts.device)
     out = torch.empty((b, r, sp), dtype=torch.float32, device=pts.device)
-    _launch("level", "pw_remap_r1", pts, partial, out, b, n, sp, trash,
+    _launch("level", "pw_remap_r1", (pts, partial, out), b, n, sp, trash,
             int(fast))
     return out
 
@@ -582,7 +620,8 @@ def remap_r1b(pts: torch.Tensor, cxy: torch.Tensor, trash: int) -> torch.Tensor:
     partial = torch.empty((b, n // TILE, 2, sp), dtype=torch.float32,
                           device=pts.device)
     out = torch.empty((b, 2, sp), dtype=torch.float32, device=pts.device)
-    _launch("level", "pw_remap_r1b", pts, cxy, partial, out, b, n, sp, trash)
+    _launch("level", "pw_remap_r1b", (pts, cxy, partial, out), b, n, sp,
+            trash)
     return out
 
 
@@ -616,8 +655,8 @@ def remap_nodes(tables: torch.Tensor, median: torch.Tensor, axis: torch.Tensor,
     b, _, sp = tables.shape
     pnode = torch.empty((b, 4, sp), dtype=torch.float32, device=tables.device)
     tz = torch.empty((b, 2, sp), dtype=torch.float32, device=tables.device)
-    _launch("level", "pw_remap_nodes", tables, median, axis, pnode, tz, b, sp,
-            trash)
+    _launch("level", "pw_remap_nodes", (tables, median, axis, pnode, tz), b,
+            sp, trash)
     return pnode, tz
 
 
@@ -644,7 +683,7 @@ def remap_points(pts: torch.Tensor, state: torch.Tensor, pnode: torch.Tensor,
     _check_points(pts, state)
     _f32(pnode)
     b, _, n = pts.shape
-    _launch("level", "pw_remap_points", pts, state, pnode, b, n,
+    _launch("level", "pw_remap_points", (pts, state, pnode), b, n,
             pnode.shape[2], trash)
 
 
@@ -677,7 +716,7 @@ def node_stats(pts: torch.Tensor, state: torch.Tensor, zth: torch.Tensor | None,
     b, _, n = pts.shape
     work = torch.empty((b, 8, sp), dtype=torch.int32, device=pts.device)
     out = torch.empty((b, 8, sp), dtype=torch.float32, device=pts.device)
-    _launch("level", "pw_node_stats", pts, state, zth, work, out, b, n, sp,
+    _launch("level", "pw_node_stats", (pts, state, zth, work, out), b, n, sp,
             trash)
     return out
 
@@ -724,8 +763,8 @@ def early_outs(nstats: torch.Tensor, tables: torch.Tensor, zth: torch.Tensor,
     b, _, sp = nstats.shape
     flags = torch.empty((b, 5, sp), dtype=torch.float32, device=nstats.device)
     any_def = torch.zeros((b,), dtype=torch.int32, device=nstats.device)
-    _launch("level", "pw_early_outs", nstats, tables, zth, flags, any_def, b,
-            sp, int(is_level0), float(flat_area), float(flat_dz),
+    _launch("level", "pw_early_outs", (nstats, tables, zth, flags, any_def),
+            b, sp, int(is_level0), float(flat_area), float(flat_dz),
             int(flat_minpts), int(min_seed))
     return flags, any_def
 
@@ -760,8 +799,8 @@ def deficient_round(pts: torch.Tensor, state: torch.Tensor, flags: torch.Tensor,
     sp = flags.shape[2]
     zmin = torch.empty((b, sp), dtype=torch.int32, device=pts.device)
     imin = torch.empty_like(zmin)
-    _launch("level", "pw_deficient_round", pts, state, flags, any_def, zmin,
-            imin, b, n, sp, trash)
+    _launch("level", "pw_deficient_round",
+            (pts, state, flags, any_def, zmin, imin), b, n, sp, trash)
 
 
 def seed_init_plain(pts, state, flags, trash, fast):
@@ -805,7 +844,7 @@ def seed_init(pts: torch.Tensor, state: torch.Tensor, flags: torch.Tensor,
     partial = torch.empty((b, n // TILE, r, sp), dtype=torch.float32,
                           device=pts.device)
     out = torch.empty((b, r, sp), dtype=torch.float32, device=pts.device)
-    _launch("level", "pw_seed_init", pts, state, flags, partial, out, b, n,
+    _launch("level", "pw_seed_init", (pts, state, flags, partial, out), b, n,
             sp, trash, int(fast))
     return out
 
@@ -905,8 +944,8 @@ def plane_table(m1: torch.Tensor, c: torch.Tensor, m2: torch.Tensor | None,
     if (m2 is None) != fast:
         raise ValueError("m2 is given exactly in exact mode")
     b, r, sp = m1.shape
-    tab = torch.empty((b, 8, sp), dtype=torch.float32, device=m1.device)
-    _launch("level", "pw_plane_table", m1, c, m2, fit, tau, tab, b, sp, r,
+    tab = m1.new_empty((b, 8, sp))
+    _launch("level", "pw_plane_table", (m1, c, m2, fit, tau, tab), b, sp, r,
             int(fast))
     return tab
 
@@ -930,8 +969,8 @@ def split_decision(sf: torch.Tensor, nstats: torch.Tensor, flags: torch.Tensor,
     _f32(sf, nstats, flags, tables)
     b, r, sp = sf.shape
     out = torch.empty((b, 3, sp), dtype=torch.float32, device=sf.device)
-    _launch("level", "pw_split_decision", sf, nstats, flags, tables, out, b,
-            sp, r)
+    _launch("level", "pw_split_decision", (sf, nstats, flags, tables, out),
+            b, sp, r)
     return out
 
 
@@ -951,7 +990,7 @@ def finish_nodes(state: torch.Tensor, flags: torch.Tensor, sd: torch.Tensor,
         return finish_nodes_plain(state, flags, sd, trash)
     _f32(state, flags, sd)
     b, _, n = state.shape
-    _launch("level", "pw_finish_nodes", state, flags, sd, b, n,
+    _launch("level", "pw_finish_nodes", (state, flags, sd), b, n,
             flags.shape[2], trash)
 
 
@@ -1096,10 +1135,11 @@ def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
     elif (sweeps_out.shape != (b,) or sweeps_out.dtype != torch.int32
           or not _on_card(p, sweeps_out)):
         raise ValueError("sweeps_out must be (B,) int32 on the points' device")
-    _launch("fit_level", "pw_fit_level", p, g0, g, stats, plan.pos,
-            plan.start, plan.tile_node, plan.tile_off, bitmap, plan.node_off,
-            plan.dest, plan.partial(_sweep_rows(fast)), tab, sync[0], sync[1],
-            sweeps_out, b, n, sp, plan.cap, int(max_iter), int(fast),
+    _launch("fit_level", "pw_fit_level",
+            (p, g0, g, stats, plan.pos, plan.start, plan.tile_node,
+             plan.tile_off, bitmap, plan.node_off, plan.dest,
+             plan.partial(_sweep_rows(fast)), tab, sync[0], sync[1],
+             sweeps_out), b, n, sp, plan.cap, int(max_iter), int(fast),
             int(_blocks_per_scan))
     return g, stats
 
@@ -1137,7 +1177,8 @@ def fit_level_blocks(b: int, n: int, num_segs: int, fast: bool = False) -> int:
 # run the level with no kernel on any device.
 plain = types.SimpleNamespace(
     seg_order_stat=seg_order_stat_plain, seg_sum=seg_sum_plain,
-    sweep_plan=lambda state, sp: None, apply_sweep=apply_sweep_plain, moments2_sweep=moments2_sweep_plain,
+    sweep_plan=lambda state, sp: None, apply_sweep=apply_sweep_plain,
+    moments2_sweep=moments2_sweep_plain,
     remap_r1=remap_r1_plain, remap_r1b=remap_r1b_plain,
     remap_nodes=remap_nodes_plain, remap_points=remap_points_plain,
     node_stats=node_stats_plain, early_outs=early_outs_plain,

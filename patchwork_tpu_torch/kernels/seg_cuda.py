@@ -56,9 +56,12 @@ def seg_gather_plain(table, seg):
 def seg_gather(table: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """Per-point lookup ``out[b, c, i] = table[b, c, seg[b, i]]``.
 
-    table (B, C, S) f32, seg (B, N) int32 in [0, S) -> (B, C, N).  CUDA: one
-    thread per point, an indexed load per channel; bound by the per-point
-    traffic (4 bytes of id in, 4 C bytes out).
+    table (B, C, S) f32, seg (B, N) int32 in [0, S) -> (B, C, N).  CUDA:
+    bound by the per-point traffic (4 bytes of id in, 4 C bytes out), so a
+    thread moves four consecutive points with 16-byte loads and stores and
+    reads the scan's table from shared memory, staged once per block of
+    1024 points (from the read-only cache when it exceeds 48 KB); one point
+    per access where N is not a multiple of 4.
     """
     if not _on_card(table, seg):
         return seg_gather_plain(table, seg)
@@ -66,9 +69,9 @@ def seg_gather(table: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     b, c, s = table.shape
     n = seg.shape[1]
     _check_seg(seg, b, n)
-    out = torch.empty((b, c, n), dtype=torch.float32, device=table.device)
+    out = table.new_empty((b, c, n))
     if n:
-        _launch("seg_gather", "pw_seg_gather", table, seg, out, b, c, n, s)
+        _launch("seg_gather", "pw_seg_gather", (table, seg, out), b, c, n, s)
     return out
 
 
@@ -118,8 +121,8 @@ def seg_minmax(vals: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
     mins = torch.empty((b, c, num_segs), dtype=torch.float32,
                        device=vals.device)
     maxs = torch.empty_like(mins)
-    _launch("seg_minmax", "pw_seg_minmax", vals, seg, mask, work, mins, maxs,
-            b, c, n, num_segs)
+    _launch("seg_minmax", "pw_seg_minmax",
+            (vals, seg, mask, work, mins, maxs), b, c, n, num_segs)
     return mins, maxs
 
 

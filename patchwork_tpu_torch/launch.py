@@ -138,9 +138,10 @@ def _scans(desc: LaunchDescription) -> Iterator[np.ndarray]:
 
 
 def run_launch(desc: LaunchDescription, log=print,
-               device: torch.device | str = "cpu"):
+               device: torch.device | str | None = None):
     """Execute the descriptor: stream every frame through the node on
-    ``device``.
+    ``device`` (the card when none is given; ``"cpu"`` runs the plain
+    versions).
 
     Returns (results, node).  Writes packed masks when out_prefix is set.
     """

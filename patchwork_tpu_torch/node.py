@@ -1,7 +1,8 @@
 """Streaming segmentation node — the middleware-free stand-in for the
 reference's ROS2 node (src/recursive_patchwork_node.cpp).
 
-Counterpart of ``patchwork_tpu/node.py`` on an explicit ``device``.  Scans
+Counterpart of ``patchwork_tpu/node.py``, on the card unless ``device="cpu"``
+is given.  Scans
 come from any iterator (KITTI directory, decoded bag arrays, synthetic
 generator), are padded to the caller's fixed capacity and go through
 :func:`filter_ground_batched`: one scan at a time with up to
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from .core.config import PatchworkConfig
+from .core.device import resolve_device
 from .core.timing import StageTimes
 from .segment.engine import filter_ground_batched
 
@@ -73,7 +75,8 @@ class FrameResult:
 
 
 class PatchworkNode:
-    """Streaming engine over fixed-capacity scans on ``device``.
+    """Streaming engine over fixed-capacity scans on ``device`` (the card
+    when none is given; ``"cpu"`` runs the plain versions).
 
     ``batch_size`` > 1 groups frames into one batched engine call (the
     throughput mode for offline sequences); 1 minimizes per-frame latency.
@@ -88,13 +91,13 @@ class PatchworkNode:
         config: PatchworkConfig | None = None,
         capacity: int = 131072,
         batch_size: int = 1,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         self.params = params or NodeParams()
         self.config = self.params.to_config(config)
         self.capacity = capacity
         self.batch_size = max(batch_size, 1)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.times = StageTimes()
 
     def _pad(self, scans: List[np.ndarray], b: int):
@@ -227,7 +230,7 @@ def run_stream(
     config: PatchworkConfig | None = None,
     capacity: int = 131072,
     verbose: bool = True,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> List[FrameResult]:
     """Convenience wrapper: stream + log like the node's DEBUG output
     (cpp:96-103: 'Processed in N ms: G ground, O obstacles')."""

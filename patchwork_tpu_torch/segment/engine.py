@@ -144,12 +144,14 @@ def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast,
     mask equals the last sweep's input, so its sums are bitwise those of
     the last sweep.  ``state`` row 0 (the mask) is updated in place; returns
     the final sums.  Row 3 (the node ids) is fixed for the loop, so one
-    sweep plan (``plan``, built here unless given) serves every sweep."""
+    sweep plan (``plan``, built here unless given) serves every sweep, the
+    apply sweeps and the moments2 sweeps alike."""
     if plan is None:
         plan = k.sweep_plan(state, fit_row.shape[1])
+
     def make_tab(m1, with_can):
         c = (m1[:, 1:4] / torch.clamp(m1[:, 0:1], min=1.0)).contiguous()
-        m2 = None if fast else k.moments2_sweep(pts, state, c, trash)
+        m2 = None if fast else k.moments2_sweep(pts, state, c, trash, plan)
         return k.plane_table(m1.contiguous(), c, m2,
                              fit_row if with_can else None, tau_row, fast)
 

@@ -50,7 +50,8 @@ def test_api_matches_jax_api():
     pts = demo_point_cloud(5000, seed=21)
     pts[::101] = np.nan
     cfg = dict(filtering_radius=50.0, num_sectors=8)
-    gt, nt = RecursivePatchwork(PatchworkConfig(**cfg)).filter_ground_points(pts)
+    gt, nt = RecursivePatchwork(PatchworkConfig(**cfg),
+                                device="cpu").filter_ground_points(pts)
     gj, nj = JaxPatchwork(JaxConfig(**cfg)).filter_ground_points(pts)
     np.testing.assert_array_equal(gt, gj)
     np.testing.assert_array_equal(nt, nj)
@@ -59,7 +60,7 @@ def test_api_matches_jax_api():
 
 
 def test_api_config_roundtrip():
-    rp = RecursivePatchwork()
+    rp = RecursivePatchwork(device="cpu")
     cfg = PatchworkConfig(num_sectors=12)
     rp.set_config(cfg)
     assert rp.get_config() is cfg
@@ -95,3 +96,57 @@ def test_wrappers_reject_bad_inputs():
         fit_cuda._check_points(pts, state)
     with pytest.raises(ValueError):
         fit_cuda._on_card(tab, torch.zeros(3, device="meta"))
+
+
+# every method of the processor that computes on tensors, with arguments
+_PROCESSOR_METHODS = {
+    "remove_nan_points": (), "filter_by_distance": (1.0, 30.0),
+    "filter_by_height": (0.0, 2.0), "compute_centroid": (),
+    "compute_covariance": (), "compute_pca": (),
+    "compute_distances_to_plane": ([0, 0, 0], [0, 0, 1]),
+    "compute_point_to_plane_distance": ([0, 0, 0], [0, 0, 1]),
+    "random_subsample": (100,), "voxel_grid_filter": (2.0,),
+}
+
+
+def _no_device_entry_points():
+    from patchwork_tpu_torch import (LidarFusion, PointCloud,
+                                     PointCloudProcessor, launch, node)
+    from patchwork_tpu_torch.io.synthetic import fused_iac_cloud
+
+    pts = demo_point_cloud(300, seed=0)
+    desc = launch.LaunchDescription(
+        node.NodeParams(), PatchworkConfig(),
+        {"demo": {"frames": 1, "points": 300}}, capacity=512)
+    return {
+        "RecursivePatchwork": lambda **kw: RecursivePatchwork(**kw),
+        "PatchworkNode": lambda **kw: node.PatchworkNode(capacity=512, **kw),
+        "run_stream": lambda **kw: node.run_stream(iter([pts]), capacity=512,
+                                                   verbose=False, **kw),
+        "run_launch": lambda **kw: launch.run_launch(
+            desc, log=lambda s: None, **kw),
+        "LidarFusion": lambda **kw: LidarFusion(**kw),
+        "PointCloud.from_numpy": lambda **kw: PointCloud.from_numpy(pts, **kw),
+        "fused_iac_cloud": lambda **kw: fused_iac_cloud(3000, seed=0, **kw),
+        "rotate_points_2d": lambda **kw: RecursivePatchwork.rotate_points_2d(
+            pts, 30.0, **kw),
+        "remove_ego_vehicle": lambda **kw: RecursivePatchwork.remove_ego_vehicle(
+            pts, 2.5, **kw),
+        **{f"PointCloudProcessor.{name}":
+           lambda name=name, args=args, **kw: getattr(
+               PointCloudProcessor, name)(pts, *args, **kw)
+           for name, args in _PROCESSOR_METHODS.items()},
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_no_device_entry_points()))
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    # no card here: with no device an entry point raises instead of running
+    # on the CPU; device="cpu" (and only that) runs the plain versions
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = _no_device_entry_points()[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(device="cuda")
+    build(device="cpu")

@@ -33,7 +33,8 @@ def dev():
 
 
 def _equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Bitwise equality (NaN == NaN, -0.0 != +0.0)."""
+    """Bitwise equality: -0.0 != +0.0, and a NaN equals only a NaN of the
+    same sign and payload."""
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
@@ -292,11 +293,12 @@ def test_fusion_on_cuda_equals_cpu(dev, seed):
         fused_iac_cloud, iac_three_lidar_scene)
 
     clouds = iac_three_lidar_scene(20000, seed=seed)
-    g, c = LidarFusion(device=dev).fuse(clouds), LidarFusion().fuse(clouds)
+    g, c = LidarFusion(device=dev).fuse(clouds), LidarFusion(
+        device="cpu").fuse(clouds)
     assert g.xyz.is_cuda
     assert _equal(g.xyz.cpu(), c.xyz) and torch.equal(g.valid.cpu(), c.valid)
     np.testing.assert_array_equal(fused_iac_cloud(60000, seed, device=dev),
-                                  fused_iac_cloud(60000, seed))
+                                  fused_iac_cloud(60000, seed, device="cpu"))
 
 
 def test_bev_images_on_cuda_equal_cpu(dev):
@@ -379,6 +381,177 @@ def test_apply_sweep_rejects_a_plan_of_other_points(dev):
     other = fit_cuda.sweep_plan(state[..., :2048].contiguous(), tab.shape[2])
     with pytest.raises(ValueError):
         fit_cuda.apply_sweep(pts, state, tab, trash, False, other)
+    with pytest.raises(ValueError):
+        fit_cuda.moments2_sweep(pts, state, tab[:, :3].contiguous(), trash,
+                                other)
+
+
+def _special_points(pts, seed):
+    """-0.0, infinities and NaN among the coordinates."""
+    rng = np.random.default_rng(seed)
+    pts = pts.clone()
+    n = pts.shape[2]
+    for value, every in ((-0.0, 5), (np.inf, 41), (-np.inf, 53), (np.nan, 67)):
+        at = torch.from_numpy(rng.permutation(n)[:n // every]).to(pts.device)
+        pts[:, int(rng.integers(0, 3)), at] = value
+    return pts
+
+
+@pytest.mark.parametrize("values", ["normal", "special"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("s", [81, 200], ids=["sp128", "sp256"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_moments2_sweep_with_and_without_plan_matches_plain(dev, b, s, order,
+                                                            values):
+    pts, state, tab, trash = _sweep_inputs(dev, 17 + b, b=b, n=9 * 256, s=s)
+    state = _order_ids(state, order)
+    if values == "special":
+        pts = _special_points(pts, b)
+    ctab = tab[:, :3].contiguous()
+    sp = tab.shape[2]
+    ref = fit_cuda.plain.moments2_sweep(pts, state, ctab, trash)
+    plan = fit_cuda.sweep_plan(state, sp)
+    fit_cuda.reset_launches()
+    for _ in range(2):      # the same plan, the same bits, run after run
+        assert _equal(fit_cuda.moments2_sweep(pts, state, ctab, trash, plan),
+                      ref)
+    assert fit_cuda.LAUNCHES["moments2_sweep"] == 2
+    assert fit_cuda.LAUNCHES["sweep_plan"] == 0
+    assert int(plan.done.abs().sum()) == 0, "the node counters must reset"
+    assert _equal(fit_cuda.moments2_sweep(pts, state, ctab, trash), ref)
+    assert fit_cuda.LAUNCHES["sweep_plan"] == 1, "no plan given: it builds one"
+    if values == "special":
+        assert torch.isnan(ref).any() and not torch.isnan(ref).all()
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("s", [81, 200], ids=["sp128", "sp256"])
+def test_moments2_and_apply_sweeps_share_one_plan(dev, s, order):
+    # a fit's sequence on one plan: apply, moments2, apply (fast rows, a
+    # larger scratch), moments2 ...; each leaves the shared counts at zero
+    pts, state, tab, trash = _sweep_inputs(dev, 23, b=3, n=33 * 256, s=s)
+    state = _order_ids(state, order)
+    plan = fit_cuda.sweep_plan(state, tab.shape[2])
+    st_k, st_p = state.clone(), state.clone()
+    for step in range(4):
+        fast = step == 2
+        tab[:, 7] *= 0.8
+        got = fit_cuda.apply_sweep(pts, st_k, tab, trash, fast, plan)
+        ref = fit_cuda.plain.apply_sweep(pts, st_p, tab, trash, fast)
+        assert _equal(got, ref) and _equal(st_k, st_p)
+        c = (got[:, 1:4] / torch.clamp(got[:, 0:1], min=1.0)).contiguous()
+        assert _equal(fit_cuda.moments2_sweep(pts, st_k, c, trash, plan),
+                      fit_cuda.plain.moments2_sweep(pts, st_p, c, trash))
+    assert int(plan.done.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("n", [4096, 4095, 4094, 4093, 1027, 5, 1])
+def test_seg_gather_tails_and_channels(dev, c, n):
+    from patchwork_tpu_torch.kernels import seg_cuda
+
+    rng = np.random.default_rng(n + c)
+    b, s = 3, 161
+    seg = torch.from_numpy(rng.integers(0, s, (b, n)).astype(np.int32)).to(dev)
+    table = torch.from_numpy(_extreme_values(rng, (b, c, s))).to(dev)
+    got = seg_cuda.seg_gather(table, seg)
+    assert got.shape == (b, c, n)
+    assert _equal(got, seg_cuda.plain.seg_gather(table, seg))
+    # views that start off a 16-byte boundary take the one-point path
+    if n > 8:
+        assert _equal(seg_cuda.seg_gather(table[1:], seg[1:]),
+                      seg_cuda.plain.seg_gather(table[1:], seg[1:]))
+        off = seg.reshape(-1)[1:1 + n - n % 4 - 4].reshape(1, -1)
+        assert off.is_contiguous()
+        assert _equal(seg_cuda.seg_gather(table[:1], off),
+                      seg_cuda.plain.seg_gather(table[:1], off))
+
+
+@pytest.mark.parametrize("c,s", [(3, 4096), (8, 1536), (8, 1537), (16, 4000)],
+                         ids=["48KB", "48KB-c8", "above-48KB", "250KB"])
+def test_seg_gather_table_sizes(dev, c, s):
+    # up to 48 KB the table is staged in shared memory, above it is read
+    # through the read-only cache
+    from patchwork_tpu_torch.kernels import seg_cuda
+
+    rng = np.random.default_rng(s)
+    for n in (8192, 8191):
+        seg = torch.from_numpy(rng.integers(0, s, (2, n)).astype(np.int32))
+        table = torch.from_numpy(_extreme_values(rng, (2, c, s)))
+        got = seg_cuda.seg_gather(table.to(dev), seg.to(dev))
+        assert _equal(got.cpu(), seg_cuda.plain.seg_gather(table, seg))
+
+
+def test_entry_points_default_to_the_card(dev):
+    from patchwork_tpu_torch import (LidarFusion, PointCloud,
+                                     RecursivePatchwork)
+    from patchwork_tpu_torch.io.synthetic import (
+        demo_point_cloud, fused_iac_cloud, iac_three_lidar_scene)
+    from patchwork_tpu_torch.node import PatchworkNode, run_stream
+
+    pts = demo_point_cloud(3000, seed=0)
+    rp = RecursivePatchwork()
+    assert rp.device.type == "cuda" and rp.segment(pts)[0].ground.is_cuda
+    node = PatchworkNode(capacity=4096)
+    assert node.device.type == "cuda" and node._pad([pts], 1)[0].is_cuda
+    fit_cuda.reset_launches()
+    assert len(run_stream(iter([pts]), capacity=4096, verbose=False)) == 1
+    assert fit_cuda.LAUNCHES["level"] > 0, "run_stream ran no kernel"
+    fusion = LidarFusion()
+    assert fusion.device.type == "cuda"
+    assert fusion.fuse(iac_three_lidar_scene(2000, seed=0)).xyz.is_cuda
+    assert PointCloud.from_numpy(pts).xyz.is_cuda
+    assert not PointCloud.from_numpy(pts, device="cpu").xyz.is_cuda
+    np.testing.assert_array_equal(fused_iac_cloud(3000, 0),
+                                  fused_iac_cloud(3000, 0, device="cpu"))
+
+
+# NumPy in, NumPy out: that a call ran on the card shows in the card's
+# allocator; "bits": the card's result equals the CPU's bit for bit
+_NUMPY_ENTRY_POINTS = [
+    ("remove_nan_points", (), "bits"),
+    ("filter_by_distance", (5.0, 30.0), "bits"),
+    ("filter_by_height", (0.2, 1.7), "bits"),
+    ("compute_centroid", (), 1e-4),
+    ("compute_covariance", (), 1e-4),
+    ("compute_pca", (), 1e-3),
+    ("compute_distances_to_plane", ([1.0, 2.0, 0.5], [0.1, 0.2, 0.97]), 1e-5),
+    ("compute_point_to_plane_distance", ([1.0, 2.0, 0.5], [0.0, 0.0, 1.0]),
+     1e-6),
+    ("random_subsample", (700, 5), "shape"),
+    ("voxel_grid_filter", (2.0,), 1e-5),
+    ("rotate_points_2d", (37.5,), "bits"),
+    ("remove_ego_vehicle", (4.0,), "bits"),
+]
+
+
+@pytest.mark.parametrize("name,args,how", _NUMPY_ENTRY_POINTS,
+                         ids=[e[0] for e in _NUMPY_ENTRY_POINTS])
+def test_numpy_entry_points_default_to_the_card(dev, name, args, how):
+    from patchwork_tpu_torch import PointCloudProcessor, RecursivePatchwork
+    from patchwork_tpu_torch.io.synthetic import demo_point_cloud
+
+    pts = demo_point_cloud(3000, seed=1)
+    if name == "remove_nan_points":
+        pts[::97] = np.nan
+    fn = getattr(RecursivePatchwork if name in ("rotate_points_2d",
+                                                "remove_ego_vehicle")
+                 else PointCloudProcessor, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fn(pts, *args)
+    assert torch.cuda.max_memory_allocated() > base, "nothing ran on the card"
+    want = fn(pts, *args, device="cpu")
+    for g, w in zip(*[x if isinstance(x, tuple) else (x,)
+                      for x in (got, want)]):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if how == "bits":
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+        elif how != "shape":
+            np.testing.assert_allclose(np.abs(g), np.abs(w), rtol=how,
+                                       atol=how)
 
 
 def _fit_inputs(dev, seed, b, n, s, order):

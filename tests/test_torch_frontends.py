@@ -32,6 +32,8 @@ from patchwork_tpu_torch.utils import checkpoint, debug, metrics  # noqa: E402
 
 torch.set_num_threads(1)
 
+CPU = {"device": "cpu"}     # no card here: the entry points must be told
+
 
 def _cloud(n=3000, seed=0):
     pts = demo_point_cloud(n, seed=seed)
@@ -48,55 +50,55 @@ def _cloud(n=3000, seed=0):
 ])
 def test_processor_masks_bitwise(method, args):
     pts = _cloud()
-    np.testing.assert_array_equal(getattr(Proc, method)(pts, *args),
+    np.testing.assert_array_equal(getattr(Proc, method)(pts, *args, **CPU),
                                   getattr(JaxProc, method)(pts, *args))
 
 
 def test_processor_statistics():
     pts = demo_point_cloud(2500, seed=3)
-    c = Proc.compute_centroid(pts)
+    c = Proc.compute_centroid(pts, **CPU)
     np.testing.assert_allclose(c, JaxProc.compute_centroid(pts), rtol=1e-6,
                                atol=1e-6)
-    np.testing.assert_allclose(Proc.compute_covariance(pts),
+    np.testing.assert_allclose(Proc.compute_covariance(pts, **CPU),
                                JaxProc.compute_covariance(pts), rtol=1e-5,
                                atol=1e-6)
-    np.testing.assert_allclose(Proc.compute_covariance(pts, [1.0, 2.0, 0.0]),
+    np.testing.assert_allclose(Proc.compute_covariance(pts, [1.0, 2.0, 0.0], **CPU),
                                JaxProc.compute_covariance(pts, [1.0, 2.0, 0.0]),
                                rtol=1e-5, atol=1e-6)
-    for a, b in zip(Proc.compute_pca(pts), JaxProc.compute_pca(pts)):
+    for a, b in zip(Proc.compute_pca(pts, **CPU), JaxProc.compute_pca(pts)):
         np.testing.assert_allclose(np.abs(a), np.abs(b), rtol=1e-4, atol=1e-5)
     # degenerate sizes: the reference's sentinels
     for small in (np.zeros((0, 3), np.float32), pts[:1], pts[:2]):
-        np.testing.assert_array_equal(Proc.compute_centroid(small[:0]),
+        np.testing.assert_array_equal(Proc.compute_centroid(small[:0], **CPU),
                                       JaxProc.compute_centroid(small[:0]))
-        np.testing.assert_array_equal(Proc.compute_covariance(small[:1]),
+        np.testing.assert_array_equal(Proc.compute_covariance(small[:1], **CPU),
                                       JaxProc.compute_covariance(small[:1]))
-        for a, b in zip(Proc.compute_pca(small), JaxProc.compute_pca(small)):
+        for a, b in zip(Proc.compute_pca(small, **CPU), JaxProc.compute_pca(small)):
             np.testing.assert_array_equal(a, b)
     # XLA's CPU dot fuses multiply-adds; the port rounds each product
     plane = ([1.0, 2.0, 0.5], [0.1, 0.2, 0.97])
-    np.testing.assert_allclose(Proc.compute_distances_to_plane(pts, *plane),
+    np.testing.assert_allclose(Proc.compute_distances_to_plane(pts, *plane, **CPU),
                                JaxProc.compute_distances_to_plane(pts, *plane),
                                rtol=1e-6, atol=1e-6)
     assert Proc.compute_point_to_plane_distance(
-        [1.0, 2.0, 3.0], [0, 0, 0], [0, 0, 1]) == \
+        [1.0, 2.0, 3.0], [0, 0, 0], [0, 0, 1], **CPU) == \
         JaxProc.compute_point_to_plane_distance([1.0, 2.0, 3.0], [0, 0, 0],
                                                 [0, 0, 1]) == 3.0
 
 
 def test_processor_sampling():
     pts = demo_point_cloud(4000, seed=4)
-    sub = Proc.random_subsample(pts, 700, seed=5)
+    sub = Proc.random_subsample(pts, 700, seed=5, **CPU)
     assert sub.shape == JaxProc.random_subsample(pts, 700, seed=5).shape
     rows = {r.tobytes() for r in pts}
     assert all(r.tobytes() in rows for r in sub)
     assert len({r.tobytes() for r in sub}) == 700
-    np.testing.assert_array_equal(Proc.random_subsample(pts, 700, seed=5), sub)
-    np.testing.assert_array_equal(Proc.random_subsample(pts[:10], 700), pts[:10])
-    got, want = Proc.voxel_grid_filter(pts, 2.0), JaxProc.voxel_grid_filter(pts, 2.0)
+    np.testing.assert_array_equal(Proc.random_subsample(pts, 700, seed=5, **CPU), sub)
+    np.testing.assert_array_equal(Proc.random_subsample(pts[:10], 700, **CPU), pts[:10])
+    got, want = Proc.voxel_grid_filter(pts, 2.0, **CPU), JaxProc.voxel_grid_filter(pts, 2.0)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    np.testing.assert_array_equal(Proc.voxel_grid_filter(pts, 0.0), pts)
+    np.testing.assert_array_equal(Proc.voxel_grid_filter(pts, 0.0, **CPU), pts)
 
 
 def test_processor_validity():
@@ -111,20 +113,20 @@ def test_processor_validity():
 
 def test_api_static_utilities():
     pts = demo_point_cloud(3000, seed=6)
-    np.testing.assert_array_equal(RecursivePatchwork.remove_ego_vehicle(pts, 4.0),
+    np.testing.assert_array_equal(RecursivePatchwork.remove_ego_vehicle(pts, 4.0, **CPU),
                                   JaxPatchwork.remove_ego_vehicle(pts, 4.0))
     for angle in (0.0, 37.5, -120.0, 90.0):
         np.testing.assert_array_equal(
-            RecursivePatchwork.rotate_points_2d(pts, angle),
+            RecursivePatchwork.rotate_points_2d(pts, angle, **CPU),
             JaxPatchwork.rotate_points_2d(pts, angle))
 
 
 @pytest.mark.parametrize("scene", ["demo", "fused_iac"])
 def test_sample_ground_and_obstacles(scene):
     pts = (demo_point_cloud(6000, seed=7) if scene == "demo"
-           else fused_iac_cloud(6000, seed=1))
+           else fused_iac_cloud(6000, seed=1, device="cpu"))
     cfg = dict(filtering_radius=60.0)
-    rp = RecursivePatchwork(PatchworkConfig(**cfg))
+    rp = RecursivePatchwork(PatchworkConfig(**cfg), device="cpu")
     jp = JaxPatchwork(JaxConfig(**cfg))
     got = rp.sample_ground_and_obstacles(pts, 1.1, 0.5, seed=3)
     want = jp.sample_ground_and_obstacles(pts, 1.1, 0.5, seed=3)
@@ -146,17 +148,18 @@ def test_sample_ground_and_obstacles(scene):
 
 def test_point_cloud_and_scan_batch():
     pts = demo_point_cloud(500, seed=8)
-    t = types.PointCloud.from_numpy(pts, capacity=512)
+    t = types.PointCloud.from_numpy(pts, capacity=512, device="cpu")
     j = jtypes.PointCloud.from_numpy(pts, capacity=512)
     assert t.capacity == j.capacity == 512 and int(t.count()) == int(j.count())
     np.testing.assert_array_equal(t.xyz.numpy(), np.asarray(j.xyz))
     np.testing.assert_array_equal(t.to_numpy(), j.to_numpy())
-    b = types.ScanBatch.stack([t, types.PointCloud.from_numpy(pts[:5], 512)])
+    b = types.ScanBatch.stack([t, types.PointCloud.from_numpy(pts[:5], 512,
+                                                          device="cpu")])
     assert (b.batch, b.capacity) == (2, 512) and int(b[1].count()) == 5
     with pytest.raises(ValueError):
-        types.PointCloud.from_numpy(pts, capacity=10)
+        types.PointCloud.from_numpy(pts, capacity=10, device="cpu")
     with pytest.raises(ValueError):
-        types.PointCloud.from_numpy(pts[:, :2])
+        types.PointCloud.from_numpy(pts[:, :2], device="cpu")
 
 
 def test_timing_helpers():
@@ -217,7 +220,8 @@ def jax_node_results():
 @pytest.mark.parametrize("batch_size", [1, 3])
 def test_node_masks_match_jax(batch_size, jax_node_results):
     n = node.PatchworkNode(node.NodeParams(max_iterations=30),
-                           capacity=NODE_CAP, batch_size=batch_size)
+                           capacity=NODE_CAP, batch_size=batch_size,
+                           device="cpu")
     seen = []
     got = n.run(_scans(), sinks=[lambda pts, r: seen.append(r.index)])
     want = jax_node_results[batch_size]
@@ -234,7 +238,7 @@ def test_node_masks_match_jax(batch_size, jax_node_results):
 
 def test_node_process_and_limit(jax_node_results):
     n = node.PatchworkNode(node.NodeParams(max_iterations=30),
-                           capacity=NODE_CAP)
+                           capacity=NODE_CAP, device="cpu")
     scans = _scans()
     assert n.process(scans[2]) is None
     r = n.process(scans[1], index=1)
@@ -350,7 +354,7 @@ def test_cli_launch_and_bag_fusion(tmp_path):
                       compression="none")
     rc, text = _run_cli([bag, "--use-patchwork", "--device", "cpu",
                          "--out-prefix", str(tmp_path / "b")])
-    fused = LidarFusion().fuse(clouds).to_numpy()
+    fused = LidarFusion(device="cpu").fuse(clouds).to_numpy()
     g, ng = JaxPatchwork().filter_ground_points(fused)
     assert rc == 0 and "Topics: /lidar_front/points" in text
     assert _counts(text) == (len(g), len(ng))

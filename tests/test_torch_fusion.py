@@ -72,7 +72,7 @@ def test_fuse_stacked_with_ego_removal_bitwise():
 def test_lidar_fusion_truncates_extra_clouds(capsys):
     clouds = tsyn.iac_three_lidar_scene(1000, seed=5)
     clouds.append(clouds[0][:10])
-    t = tfus.LidarFusion().fuse(clouds)
+    t = tfus.LidarFusion(device="cpu").fuse(clouds)
     t_msg = capsys.readouterr().out
     j = jfus.LidarFusion().fuse(clouds)
     assert t_msg == capsys.readouterr().out != ""
@@ -82,7 +82,7 @@ def test_lidar_fusion_truncates_extra_clouds(capsys):
 
 
 def test_lidar_fusion_config_surface():
-    f = tfus.LidarFusion([LidarConfig(1, "/a", 45.0, 1.0)])
+    f = tfus.LidarFusion([LidarConfig(1, "/a", 45.0, 1.0)], device="cpu")
     jf = jfus.LidarFusion([JaxLidar(1, "/a", 45.0, 1.0)])
     pts = tsyn.uniform_cube_cloud(500, seed=1)
     np.testing.assert_array_equal(f.fuse([pts]).to_numpy(),
@@ -96,7 +96,7 @@ def test_lidar_fusion_config_surface():
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_fused_iac_cloud_bitwise(seed):
-    np.testing.assert_array_equal(_bits(tsyn.fused_iac_cloud(16384, seed)),
+    np.testing.assert_array_equal(_bits(tsyn.fused_iac_cloud(16384, seed, device="cpu")),
                                   _bits(jsyn.fused_iac_cloud(16384, seed)))
 
 
@@ -114,7 +114,7 @@ def test_generators_bitwise(n, seed):
                                  {"segment_impl": "scatter"}],
                          ids=["default", "fast", "scatter"])
 def test_engine_masks_on_fused_cloud(cfg):
-    pts = tsyn.fused_iac_cloud(16384, seed=0)
+    pts = tsyn.fused_iac_cloud(16384, seed=0, device="cpu")
     got = filter_ground(torch.from_numpy(pts),
                         torch.ones(len(pts), dtype=torch.bool),
                         PatchworkConfig(**cfg)).ground.numpy()

@@ -142,6 +142,29 @@ class TestSweeps:
                                       sp)[0]
         np.testing.assert_allclose(got.numpy(), ref[:6], rtol=RTOL, atol=ATOL)
 
+    @pytest.mark.parametrize("seed", [5, 8])
+    def test_moments2_with_plan_vs_fused_moments2(self, seed):
+        # the sweep plan of the fit changes no bit of the moments2 sweep
+        xyz, seg, g, tab, s, sp, pts, state = _sweep_scene(seed)
+        p = fit_pack(jnp.asarray(xyz), jnp.zeros(len(seg)),
+                     jnp.ones(len(seg), bool), jnp.asarray(seg))
+        ctab = tab.copy()
+        ctab[3:] = 0.0
+        ref = np.asarray(fused_moments2(p, jnp.asarray(g)[None],
+                                        jnp.asarray(ctab), s))
+        args = (torch.from_numpy(pts), torch.from_numpy(state),
+                torch.from_numpy(tab[None, 0:3].copy()), sp)
+        plan = fit_cuda.sweep_plan(args[1], tab.shape[1])
+        got = fit_cuda.moments2_sweep(*args, plan=plan)
+        np.testing.assert_array_equal(
+            got.numpy().view(np.int32),
+            fit_cuda.moments2_sweep(*args).numpy().view(np.int32))
+        np.testing.assert_array_equal(
+            got.numpy().view(np.int32),
+            fit_cuda.plain.moments2_sweep(*args, plan).numpy().view(np.int32))
+        np.testing.assert_allclose(got[0].numpy(), ref[:6], rtol=RTOL,
+                                   atol=ATOL)
+
     def test_tile_sums_order(self):
         # the plain sum adds in the kernels' order: per tile in point order,
         # then tiles in order -- check it against that loop written out

@@ -47,6 +47,21 @@ def test_gather_vs_pallas(c):
     np.testing.assert_array_equal(got, ref.T)
 
 
+@pytest.mark.parametrize("n", [N - 1, N - 2, 1027, 5])
+@pytest.mark.parametrize("c", [3, 8])
+def test_gather_vs_pallas_ragged(n, c):
+    # point counts that are no multiple of 4: rows of the output are not
+    # 16-byte aligned, the case the CUDA kernel takes one point at a time
+    seg, _, _ = _case(n + c, c)
+    seg = seg[:n].copy()
+    table = np.random.default_rng(n).normal(0, 5, (S, c)).astype(np.float32)
+    ref = np.asarray(seg_gather_pallas(jnp.asarray(table), jnp.asarray(seg)))
+    got = seg_cuda.seg_gather(torch.from_numpy(table.T.copy())[None],
+                              torch.from_numpy(seg)[None])[0]
+    assert got.shape == (c, n)
+    np.testing.assert_array_equal(got.numpy(), ref.T)
+
+
 @pytest.mark.parametrize("c", [3, 1])
 def test_minmax_vs_pallas(c):
     seg, vals, mask = _case(10 + c, c)

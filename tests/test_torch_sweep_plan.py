@@ -125,11 +125,8 @@ def test_plan_sums_equal_tile_sums_bitwise(ids, values, b, n, num_segs, r):
     got = _plan_sums(rows, plan)
     want = fit_cuda._tile_sums(rows, torch.from_numpy(seg), sp)
     assert got.shape == (b, r, sp)
-    # bit patterns, -0.0 and +0.0 apart; NaNs by position (a NaN's payload
-    # is not part of the contract)
-    nan_g, nan_w = torch.isnan(got).numpy(), torch.isnan(want).numpy()
-    np.testing.assert_array_equal(nan_g, nan_w)
-    np.testing.assert_array_equal(_bits(got)[~nan_g], _bits(want)[~nan_w])
+    # bit patterns: -0.0 and +0.0 apart, a NaN's sign and payload included
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("ids", ["sorted", "shuffled", "one_node",
@@ -230,6 +227,55 @@ def test_apply_sweep_same_with_and_without_plan(fast):
                                   _bits(a[:, :4]))
 
 
+def _m2_rows(pts, state, ctab, trash):
+    """The six rows the moments2 sweep adds per node, as its plain version
+    computes them (fit_cuda.moments2_sweep_plain)."""
+    seg, act = fit_cuda._live(state, trash)
+    g = state[:, 0] * act
+    c = fit_cuda._gather_rows(ctab, seg)
+    dx = (pts[:, 0] - c[:, 0]) * g
+    dy = (pts[:, 1] - c[:, 1]) * g
+    dz = (pts[:, 2] - c[:, 2]) * g
+    return torch.stack([dx * dx, dx * dy, dx * dz, dy * dy, dy * dz,
+                        dz * dz], 1)
+
+
+@pytest.mark.parametrize("ids", ["sorted", "shuffled", "trash"])
+@pytest.mark.parametrize("values", ["normal", "special"])
+@pytest.mark.parametrize("b,num_segs", [(1, 81), (3, 81), (1, 256), (3, 256)],
+                         ids=["B1-Sp128", "B3-Sp128", "B1-Sp256", "B3-Sp256"])
+def test_moments2_planned_order_equals_tile_sums_bitwise(ids, values, b,
+                                                         num_segs):
+    # the order the planned moments2 kernel adds its six rows in (_plan_sums)
+    # gives the bits of the dense order (the sweep's plain version), with
+    # -0.0, infinities and NaN among the coordinates; and a plan handed to
+    # the wrapper changes nothing
+    rng = np.random.default_rng(7 * b + num_segs)
+    n = 1024
+    sp = fit_cuda.sp_width(num_segs)
+    trash = num_segs - 1
+    pts = np.zeros((b, 8, n), np.float32)
+    pts[:, 0:3] = _values(values, rng, (b, 3, n))
+    state = _state(_ids(ids, rng, b, n, sp, num_segs))
+    state[:, 0] = torch.from_numpy(
+        (rng.random((b, n)) < 0.6).astype(np.float32))
+    ctab = np.zeros((b, 3, sp), np.float32)
+    ctab[:, :, :num_segs] = rng.normal(0, 50, (b, 3, num_segs))
+    if values == "special":
+        ctab[:, :, ::9] = -0.0
+    pts, ctab = torch.from_numpy(pts), torch.from_numpy(ctab)
+    plan = fit_cuda.sweep_plan(state, sp)
+    want = fit_cuda.moments2_sweep(pts, state, ctab, trash)
+    with_plan = fit_cuda.moments2_sweep(pts, state, ctab, trash, plan)
+    got = _plan_sums(_m2_rows(pts, state, ctab, trash), plan)
+    assert want.shape == got.shape == (b, 6, sp)
+    # bit patterns: -0.0 and +0.0 apart, a NaN's sign and payload included
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(with_plan), _bits(want))
+    if values == "special":
+        assert torch.isnan(want).any() and not torch.isnan(want).all()
+
+
 @pytest.mark.parametrize("kernels", [fit_cuda, fit_cuda.plain],
                          ids=["wrappers", "plain"])
 @pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
@@ -260,3 +306,8 @@ def test_plain_namespace_takes_no_plan():
                                    fit_cuda.sweep_plan(state, tab.shape[2]))
     np.testing.assert_array_equal(_bits(a), _bits(b))
     np.testing.assert_array_equal(_bits(st_a), _bits(st_b))
+    ctab = tab[:, :3].contiguous()
+    np.testing.assert_array_equal(
+        _bits(fit_cuda.plain.moments2_sweep(pts, state, ctab, trash)),
+        _bits(fit_cuda.plain.moments2_sweep(
+            pts, state, ctab, trash, fit_cuda.sweep_plan(state, tab.shape[2]))))

@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
 """Check and time the port's redesigned kernels on one NVIDIA card.
 
-    python3 tools/torch_kernel_bench.py [--json PATH]
+    python3 tools/torch_kernel_bench.py [--json PATH] [--sections LIST]
 
-Times of the sweep plan, the planned apply sweep and the co-operative
-``fit_level`` at the main path's shapes, each held to its plain version
-(bitwise) on the input it is timed on: the apply sweep on the level path's
-inputs (velodyne and split terrain, B=8 x 131072) and on the same points
-shuffled, by CUDA events over back-to-back launches and by torch.profiler's
-device times, beside the dense moments2 sweep; ``fit_level`` on the level-0
-fit of B=8/3/1 x 153600 128-beam scans over a range of blocks per scan,
-beside the loop of sweeps; then one profiled batch per path (device busy
-time, host span, idle share, top kernels).  Prints the card's name and power limit and
-what ptxas reported for these kernels first; exits non-zero on any
-mismatch.
+Sections (all by default; ``--sections gather,sweeps`` runs some):
+
+``gather``    ``seg_gather`` on the inputs the generic path gives it (B=8 x
+              131072 under ``segment_impl="pallas"``, B=8 x 153600 under the
+              default) beside ``torch.gather`` on the prepared int64 index:
+              each one's device time (torch.profiler), its time by CUDA
+              events over back-to-back calls, and its host time per call
+              (``time.perf_counter`` over 2000 unsynchronised calls); and
+              the host time per call of the other wrappers, the floor the
+              launch plumbing sets for every family's event time;
+``sweeps``    the sweep plan, the planned apply sweep and the planned
+              moments2 sweep on the level path's inputs (velodyne and split
+              terrain, B=8 x 131072) and on the same points shuffled, each
+              held to its plain version (bitwise), by events and by device
+              time;
+``fits``      ``fit_level`` on the level-0 fit of B=8/3/1 x 153600 128-beam
+              scans over a range of blocks per scan, beside the loop of
+              sweeps;
+``profiles``  one profiled batch per path (device busy time, host span,
+              idle share, top kernels);
+``scans``     scans/s of ``filter_ground_batched`` at B=8 (CUDA events, 10
+              batches after a warm-up): velodyne at 131072 points, 128-beam
+              velodyne at 153600 on the generic path and with the level
+              path forced, and at 262144 (not in the default list: run the
+              tool in two trees in turns to compare them).
+
+Prints the card's name and power limit and what ptxas reported for these
+kernels first; exits non-zero on any mismatch.
 """
 
 from __future__ import annotations
@@ -23,6 +40,7 @@ import json
 import os
 import re
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -34,7 +52,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
+    ap.add_argument("--sections", default="gather,sweeps,fits,profiles")
     args = ap.parse_args()
+    sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
         print("torch_kernel_bench: no CUDA device", file=sys.stderr)
         return 1
@@ -43,7 +63,7 @@ def main() -> int:
     from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
     from patchwork_tpu_torch.core.device import card_info, cuda_device
     from patchwork_tpu_torch.io.synthetic import velodyne_like_cloud
-    from patchwork_tpu_torch.kernels import _build, fit_cuda
+    from patchwork_tpu_torch.kernels import _build, fit_cuda, seg_cuda
     from patchwork_tpu_torch.segment import engine
 
     dev = cuda_device()
@@ -54,7 +74,8 @@ def main() -> int:
     for m in re.finditer(r"Compiling entry function '(\w+)'[^\n]*\n"
                          r"[^\n]*\n\s*([^\n]*spill[^\n]*)\n"
                          r"ptxas info\s+: (Used [^\n]+)", log):
-        if re.search(r"apply_kernel|pw_plan_|fit_level", m.group(1)):
+        if re.search(r"apply_kernel|pw_plan_|fit_level|pw_m2|gather",
+                     m.group(1)):
             print(f"[ptxas] {m.group(1)}: {m.group(3)}; {m.group(2)}",
                   flush=True)
     bad = []
@@ -99,11 +120,17 @@ def main() -> int:
                   zip(plan.tensors(), ref.tensors())), f"{label} plan")
         st_k, st_p, st_2 = state.clone(), state.clone(), state.clone()
         got = fit_cuda.apply_sweep(pts, st_k, tab, trash, fast, plan)
+        # the moments2 sweep between two apply sweeps, on the same plan
+        ctab = tab[:, :3].contiguous()
+        m2 = fit_cuda.moments2_sweep(pts, st_k, ctab, trash, plan)
         again = fit_cuda.apply_sweep(pts, st_2, tab, trash, fast, plan)
         want = fit_cuda.apply_sweep_plain(pts, st_p, tab, trash, fast)
         torch.cuda.synchronize()
         check(bits(got, want) and bits(st_k, st_p), f"{label} apply vs plain")
         check(bits(got, again) and bits(st_k, st_2), f"{label} apply twice")
+        check(bits(m2, fit_cuda.moments2_sweep_plain(pts, st_p, ctab, trash))
+              and bits(m2, fit_cuda.moments2_sweep(pts, st_k, ctab, trash, plan)),
+            f"{label} moments2 vs plain and twice")
         total = plan.tile_off[:, -1].float()
         return plan, float(total.mean()) / (pts.shape[2] // fit_cuda.TILE)
 
@@ -134,6 +161,20 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def kernel_rows(prof):
+        """(device us, count, name) of the profile's kernels.  Rows of
+        host-side PyTorch ops are left out: an op's self device time is
+        that of the kernels it launched, which have rows of their own."""
+        from torch.autograd import DeviceType
+
+        rows = []
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if t > 0 and ev.device_type == DeviceType.CUDA:
+                rows.append((t, ev.count, ev.key))
+        return rows
+
     def device_us(fn, reps, pattern):
         """Mean device time per call of the kernels matching ``pattern``."""
         from torch.profiler import ProfilerActivity, profile
@@ -145,17 +186,141 @@ def main() -> int:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
-        for ev in prof.key_averages():
-            if re.search(pattern, ev.key):
-                total += getattr(ev, "device_time_total",
-                                 getattr(ev, "cuda_time_total", 0.0))
-        return total / reps
+        return sum(t for t, _, key in kernel_rows(prof)
+                   if re.search(pattern, key)) / reps
+
+    def host_us(fn, reps=2000):
+        """Host time per call: ``reps`` calls with no synchronise between
+        them (the queue absorbs them), by the host's clock."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / reps * 1e6
+
+    # ---- seg_gather beside torch.gather; the wrappers' host time ----
+    def gather_section():
+        rows = {}
+        cases = {
+            f"pallas B={B} N={N}": (
+                batch(velodyne_like_cloud, B, N),
+                PatchworkConfig(segment_impl="pallas"), 3),
+            f"fused B={B} N={N_GEN}": (
+                batch(velodyne_like_cloud, B, N_GEN, num_beams=128),
+                PatchworkConfig(), 1)}
+        for label, (data, cfg, pick) in cases.items():
+            (table, seg), _ = capture(data, cfg, seg_cuda, "seg_gather", pick)
+            idx = seg.long()[:, None, :].expand(-1, table.shape[1], -1)
+            got = seg_cuda.seg_gather(table, seg)
+            check(bits(got, torch.gather(table, 2, idx))
+                  and bits(got, seg_cuda.seg_gather_plain(table, seg)),
+                  f"seg_gather {label} vs torch.gather and plain")
+
+            def kernel():
+                return seg_cuda.seg_gather(table, seg)
+
+            def library():
+                return torch.gather(table, 2, idx)
+
+            byts = 4 * (table.numel() + seg.numel() + got.numel())
+            row = {"shape": [list(table.shape), list(seg.shape)],
+                   "bound_us": byts / chip_smoke.PEAK_BYTES_S * 1e6}
+            for _ in range(5):      # in turns: kernel, library, kernel, ...
+                for name, fn, pat in (
+                        ("kernel", kernel, "pw_gather"),
+                        ("torch_gather", library, r"^(?!.*pw_).*gather")):
+                    r = row.setdefault(name, {"device_us": [], "events_us": [],
+                                              "host_us": []})
+                    r["device_us"].append(device_us(fn, 200, pat))
+                    r["events_us"].append(1e3 * events_ms(fn, 2000))
+                    r["host_us"].append(host_us(fn))
+            rows[label] = row
+            for name in ("kernel", "torch_gather"):
+                r = row[name]
+
+                def spread(key):    # least, median, most of the five turns
+                    v = sorted(r[key])
+                    return f"{v[0]:.2f} / {v[2]:.2f} / {v[-1]:.2f}"
+
+                print(f"[gather] {label} table {tuple(table.shape)} {name} "
+                      f"(min / median / max of 5 turns): device "
+                      f"{spread('device_us')} us, by events "
+                      f"{spread('events_us')} us, host per call "
+                      f"{spread('host_us')} us (bound {row['bound_us']:.2f} "
+                      f"us, {byts} B)", flush=True)
+        out["gather"] = rows
+
+        # the other wrappers' host time per call, on the level path's inputs
+        a, _ = capture(batch(velodyne_like_cloud, B, N), PatchworkConfig(),
+                       fit_cuda, "apply_sweep", 5)
+        pts, state, tab, trash = a[:4]
+        st = state.clone()
+        plan = fit_cuda.sweep_plan(st, tab.shape[2])
+        m1 = fit_cuda.apply_sweep(pts, st, tab, trash, False, plan)
+        c = tab[:, :3].contiguous()
+        m2 = fit_cuda.moments2_sweep(pts, st, c, trash, plan)
+        fit = tab[:, 6].contiguous()
+        tau = tab[:, 7].contiguous()
+        host = {}
+        for name, fn in (
+                ("apply_sweep", lambda: fit_cuda.apply_sweep(
+                    pts, st, tab, trash, False, plan)),
+                ("moments2_sweep", lambda: fit_cuda.moments2_sweep(
+                    pts, st, c, trash, plan)),
+                ("plane_table", lambda: fit_cuda.plane_table(
+                    m1, c, m2, fit, tau, False)),
+                ("torch.empty", lambda: torch.empty(
+                    (B, 6, 128), dtype=torch.float32, device=dev))):
+            host[name] = {"host_us": host_us(fn),
+                          "events_us": 1e3 * events_ms(fn, 2000)}
+            print(f"[host] {name}: host per call {host[name]['host_us']:.2f} "
+                  f"us, by events {host[name]['events_us']:.2f} us",
+                  flush=True)
+        out["host"] = host
+
+        # what a seg_gather call is made of, piece by piece (host time)
+        (table, seg), _ = capture(batch(velodyne_like_cloud, B, N),
+                                  PatchworkConfig(segment_impl="pallas"),
+                                  seg_cuda, "seg_gather", 3)
+        b, c, s = table.shape
+        n = seg.shape[1]
+        res = torch.empty((b, c, n), dtype=torch.float32, device=dev)
+        fn = fit_cuda._c_function("pw_seg_gather")
+        ptrs = [t.data_ptr() for t in (table, seg, res)]
+        stream = torch.cuda.current_stream().cuda_stream
+        pieces = {}
+        for name, piece in (
+                ("torch.empty((b, c, n), dtype, device)",
+                 lambda: torch.empty((b, c, n), dtype=torch.float32,
+                                     device=table.device)),
+                ("table.new_empty((b, c, n))",
+                 lambda: table.new_empty((b, c, n))),
+                ("_on_card(table, seg)",
+                 lambda: fit_cuda._on_card(table, seg)),
+                ("three data_ptr()",
+                 lambda: [t.data_ptr() for t in (table, seg, res)]),
+                ("raw stream handle",
+                 lambda: torch._C._cuda_getCurrentRawStream(
+                     table.get_device())),
+                ("torch.cuda.current_stream().cuda_stream",
+                 lambda: torch.cuda.current_stream().cuda_stream),
+                ("the C call alone (ctypes + launch)",
+                 lambda: fn(*ptrs, b, c, n, s, stream)),
+                ("a Python call of an empty function", lambda: None)):
+            pieces[name] = host_us(piece)
+            print(f"[plumbing] {name}: {pieces[name]:.2f} us", flush=True)
+        out["plumbing"] = pieces
+
+    if "gather" in sections:
+        gather_section()
 
     sweeps = {}
     scenes = {"velodyne": batch(velodyne_like_cloud, B, N),
               "split": batch(chip_smoke.split_terrain_cloud, B, N)}
-    for fast in (False, True):
+    for fast in (False, True) if "sweeps" in sections else ():
         cfg = PatchworkConfig(fast_covariance=fast)
         mode = "fast" if fast else "exact"
         for scene, data in scenes.items():
@@ -165,6 +330,7 @@ def main() -> int:
                 plan, per_tile = check_sweep(f"{label} {mode}", inp)
                 pts, state, tab, trash, _ = inp[:5]
                 st = state.clone()
+                ctab = tab[:, :3].contiguous()
                 row = {
                     "nodes_per_tile": per_tile, "sp": tab.shape[2],
                     "events_us": 1e3 * events_ms(lambda: fit_cuda.apply_sweep(
@@ -178,21 +344,24 @@ def main() -> int:
                         "pw_plan"),
                     "moments2_device_us": device_us(
                         lambda: fit_cuda.moments2_sweep(
-                            pts, st, tab[:, :3].contiguous(), trash), 20,
-                        "pw_m2|pw_tile_reduce")}
+                            pts, st, ctab, trash, plan), 50, "pw_m2"),
+                    "moments2_events_us": 1e3 * events_ms(
+                        lambda: fit_cuda.moments2_sweep(
+                            pts, st, ctab, trash, plan), 200)}
                 sweeps[f"{label} {mode}"] = row
                 print(f"[sweep] {label} {mode} B={B} N={N} Sp={row['sp']} "
                       f"nodes/tile {per_tile:.2f}: apply {row['device_us']:.1f}"
                       f" us device, {row['events_us']:.1f} us by events; plan "
                       f"{row['plan_device_us']:.1f} us device, "
                       f"{row['plan_events_us']:.1f} us by events; moments2 "
-                      f"(dense) {row['moments2_device_us']:.1f} us device",
+                      f"{row['moments2_device_us']:.1f} us device, "
+                      f"{row['moments2_events_us']:.1f} us by events",
                       flush=True)
     out["sweeps"] = sweeps
 
     fits = {}
     gen = batch(velodyne_like_cloud, B, N_GEN, num_beams=128)
-    for fast in (False, True):
+    for fast in (False, True) if "fits" in sections else ():
         cfg = PatchworkConfig(fast_covariance=fast)
         mode = "fast" if fast else "exact"
         (p, g0, num_segs, max_iter), kw = capture(gen, cfg, fit_cuda,
@@ -227,8 +396,6 @@ def main() -> int:
 
     # ---- one profiled batch per path: device busy, span, idle share ----
     def profile_batch(label, fn):
-        import time
-
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -239,13 +406,8 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             span = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for ev in prof.key_averages():
-            t = getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-            if t > 0:
-                rows.append((t / 1e3, ev.count, ev.key))
-        rows.sort(reverse=True)
+        rows = sorted(((t / 1e3, c, k) for t, c, k in kernel_rows(prof)),
+                      reverse=True)
         busy = sum(r[0] for r in rows)
         top = "; ".join(f"{k[:40]} {t:.2f} ms x{c}" for t, c, k in rows[:5])
         out.setdefault("profiles", {})[label] = {
@@ -256,7 +418,7 @@ def main() -> int:
               flush=True)
 
     velo = scenes["velodyne"]
-    for fast in (False, True):
+    for fast in (False, True) if "profiles" in sections else ():
         cfg = PatchworkConfig(fast_covariance=fast)
         mode = "fast" if fast else "exact"
         profile_batch(f"velodyne B={B} N={N} {mode}, level path",
@@ -266,6 +428,25 @@ def main() -> int:
         profile_batch(f"velodyne128 B={B} N={N_GEN} {mode}, level path forced",
                       lambda: chip_smoke.level_path(
                           engine, filter_ground_batched, *gen, cfg))
+    if "scans" in sections:
+        rates = {}
+        big = batch(velodyne_like_cloud, B, chip_smoke.N_BIG, num_beams=128)
+        for fast in (False, True):
+            cfg = PatchworkConfig(fast_covariance=fast)
+            mode = "fast" if fast else "exact"
+            rates[f"velodyne N={N} {mode}"] = chip_smoke.scans_per_s(
+                *velo, cfg, False, 10)
+            rates[f"velodyne128 N={N_GEN} {mode}, generic path"] = \
+                chip_smoke.scans_per_s(*gen, cfg, False, 10)
+            rates[f"velodyne128 N={N_GEN} {mode}, level path forced"] = \
+                chip_smoke.level_path(engine, chip_smoke.scans_per_s, *gen,
+                                      cfg, False, 10)
+        rates[f"velodyne128 N={chip_smoke.N_BIG} exact"] = \
+            chip_smoke.scans_per_s(*big, PatchworkConfig(), False, 10)
+        for label, rate in rates.items():
+            print(f"[scans] {label} B={B}: {rate:.1f} scans/s", flush=True)
+        out["scans_per_s"] = rates
+
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
