@@ -8,34 +8,50 @@ Phases, one line each:
   2. build: compile the kernels of patchwork_tpu_torch/csrc with nvcc;
   3. kernels: every kernel wrapper against its plain PyTorch version, on the
      inputs the main path gives it (captured from runs of the slice: the
-     level path, the "pallas" segment ops and the generic engine's fit),
-     with its bound (the least time the card could take: bytes over
+     level path, the "pallas" segment ops, the generic engine's fit, and
+     for the apply sweep, the moments2 sweep and the plane table the one
+     route that still runs them, a node table above the card's gate, Sp
+     4224 at B=2 x 32768; beside those, labelled "gate shut", the sweeps at
+     B=8 x 131072 with the gate shut for the call, the shapes of earlier
+     readings), with its bound (the least time the card could take: bytes over
      3.35 TB/s or float32 operations over 67 TFLOP/s) and, where one PyTorch
      call computes the same function, that call's time; then the
      redesigned kernels: the sweep plan against its plain version, the
-     apply sweep and the moments2 sweep with a shared plan on velodyne,
-     split terrain and a shuffled cloud at Sp 128 and 256 (the moments2
+     apply sweep and the moments2 sweep with a shared plan on the wide
+     table's input, on velodyne, split terrain and a shuffled cloud at Sp
+     128 and 256 (the moments2
      sweep also without a plan, and after an apply sweep on the same plan),
      seg_gather at C = 1, 3, 8 and point counts that are no multiple of 4,
      and fit_level at B = 1, 3, 8, each scan against its solo run, a
      max_iter exit beside a convergence exit, every one run twice with
-     equal bits; the device times (torch.profiler) of the moments2 sweep,
-     seg_gather and torch.gather;
+     equal bits; level_fit, the level path's fit loop in one launch, the
+     same way on velodyne level 0 (Sp 128) and a split-terrain remap level
+     (Sp 256), mask and every column of the sums bit for bit, beside the
+     loop of sweeps on the same input; the order statistic at Sp 128
+     (percentile ranks) and Sp 256 (medians) with its kernels per call, and
+     on a skewed input (one node holds two fifths of a scan); the
+     voxel filter's run sums; the device times (torch.profiler) of the
+     moments2 sweep, seg_gather, torch.gather, level_fit and the order
+     statistic;
   4. slice: filter_ground_batched on B=8 x 131072 velodyne-like scans and
      on B=8 x 131072 split-terrain scans (whose patches recurse), exact and
      fast mode, through the kernels: exact masks equal the plain path's bit
-     for bit, fast IoU >= 0.999 vs exact, a second run gives the same masks,
+     for bit (fast masks are compared on the first two scans: the plain path
+     takes seconds a batch), fast IoU >= 0.999 vs exact, a second run gives
+     the same masks,
      sector ids agree with CPU binning, RecursivePatchwork on one scan; then
      the generic level engine: segment_impl="pallas" at B=8 x 131072, and
-     the default "fused" above the fit gate on 128-beam velodyne and split
-     terrain at B=8 x 153600 (fit_level at level 0, the loop of sweeps
-     deeper) and on 128-beam velodyne at B=8 x 262144 (the loop of sweeps
-     only), held to the plain path and to the level path forced on the same
-     scans; every kernel family was launched;
+     the default "fused" above the path gate on 128-beam velodyne and split
+     terrain at B=8 x 153600 and on 128-beam velodyne at B=8 x 262144 (one
+     fit_level launch a level), held to the plain path and to the level path
+     forced on the same scans; then a table too wide for the one-launch fit
+     (max_active_nodes_cfg 4096, Sp 4224, split terrain B=2 x 32768):
+     fit_level at level 0, the loop of apply and moments2 sweeps deeper,
+     held to the plain path; every kernel family was launched;
   5. quality: the five hard labeled scenes at 65536 points (seeds 0, 1),
      IoU within 0.001 of EVAL_r05.json in both modes;
-  6. timing: scans/s of the kernel path and the plain path (CUDA events),
-     and of the generic path beside the level path forced on the same scans;
+  6. timing: scans/s of the kernel path (CUDA events) beside the plain
+     path's (its run in phase 4), and of the generic path beside the level path forced on the same scans;
   7. front ends, through the entry points a user calls, built with no
      device argument (they default to the card, and what they return must
      lie there), with the launch
@@ -47,7 +63,9 @@ Phases, one line each:
      static utilities with no device (each allocates on the card and agrees
      with device="cpu"); (c) the CLI in this process on the demo
      cloud and on a split-terrain KITTI frame (whose patches split, so the
-     order statistic runs), with both PNGs decoded; (d) the CLI as a
+     order statistic runs), with both PNGs decoded, and on the same frame
+     with a node table above the card's gate (the loop of sweeps); (d) the
+     CLI as a
      process on a 3-topic MCAP (bag -> fusion -> engine); (e) a JSON launch
      descriptor over eight 128-beam KITTI frames of 153600 points, default
      config (fit_level) and segment_impl "pallas"; (f) PatchworkNode over 16
@@ -78,6 +96,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B, N = 8, 131072
 N_GEN = 153600      # a Hesai AT128 frame (128 x 1200): above the fit gate
 N_BIG = 262144      # an OS-128 frame at 2048 columns; the API's next bucket
+B_WIDE, N_WIDE = 2, 32768   # the scans of the configuration below
+# a node table too wide for the one-launch fit: its fits run as loops of sweeps
+WIDE_NODES = 4096
 HARD_POINTS = 65536
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3   # float sums; the design adds in one order
 IOU_FAST_MIN = 0.999
@@ -181,6 +202,14 @@ def kernel_bound(name, args, kw, out, sweeps):
         flops = sum(n * (k * APPLY_FLOPS[fast]
                          + (0 if fast else (k - 1) * M2_FLOPS))
                     for k in sweeps)
+    elif name == "level_fit":
+        pts, state, m1, fit_row, tau_row = args[:5]
+        b, _, n = pts.shape
+        fast = bool(args[7])
+        # x, y, z, the mask and the node id read, the mask written back
+        byts = b * n * 24 + _nbytes(m1, fit_row, tau_row, out)
+        flops = sum(n * k * (APPLY_FLOPS[fast] + (0 if fast else M2_FLOPS))
+                    for k in sweeps)
     elif name == "level":
         pts, tables = args[:2]
         b, _, n = pts.shape
@@ -236,11 +265,7 @@ def redesigned_kernel_checks(dev, fails, sweep_inputs, fit_inputs,
     import torch
     from patchwork_tpu_torch.kernels import fit_cuda, seg_cuda
 
-    def same(a, b):
-        return all(torch.equal(x.view(torch.int32) if x.is_floating_point()
-                               else x, y.view(torch.int32)
-                               if y.is_floating_point() else y)
-                   for x, y in zip(_tensors(a), _tensors(b)))
+    same = _same_bits
 
     for label, a in sorted(sweep_inputs.items()):
         pts, state, tab, trash = a[:4]
@@ -367,6 +392,205 @@ def redesigned_kernel_checks(dev, fails, sweep_inputs, fit_inputs,
                 "fit_level: the max_iter exit equals the convergence exit")
 
 
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                           y.view(torch.int32) if y.is_floating_point() else y)
+               for x, y in zip(_tensors(a), _tensors(b)))
+
+
+def level_fit_checks(dev, fails, inputs) -> dict:
+    """Phase 3's checks of level_fit, the level path's fit loop in one
+    launch: ``inputs`` maps (scene, mode) to the arguments the main path
+    gave it.  Against its plain version (the loop of plain sweeps) in the
+    mask and in every column of the sums, bit for bit, at B = 1, 3, 8, a
+    max_iter exit beside a convergence exit, each scan alone against the
+    batch, every one run twice; timed beside the loop of sweeps on the same
+    input.  Returns the JSON keys of the family's entry (velodyne exact)."""
+    import torch
+    from patchwork_tpu_torch.kernels import fit_cuda
+
+    def run(fn, a, mi, **kw):
+        pts, state, m1, fit_row, tau_row, trash, _, fast = a
+        st = state.clone()
+        return fn(pts, st, m1, fit_row, tau_row, trash, mi, fast, **kw), st
+
+    def cut(a, lo, hi):
+        return tuple(t[lo:hi].contiguous() for t in a[:5]) + tuple(a[5:])
+
+    entry = {}
+    for (scene, mode), a in sorted(inputs.items()):
+        n, sp, max_iter, fast = a[0].shape[2], a[3].shape[1], a[6], a[7]
+        blocks = {b: fit_cuda.fit_level_blocks(b, n, sp, fast, level=True)
+                  for b in (1, 3, 8)}
+        print(f"[3 level_fit] {scene} {mode} N={n} Sp={sp}: one co-operative "
+              f"launch, blocks per scan {blocks}", flush=True)
+        of_8 = {}
+        for b in (8, 3, 1):
+            ab = cut(a, 0, b)
+            for mi in (max_iter, 2):
+                sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+                got = run(fit_cuda.level_fit, ab, mi, sweeps_out=sweeps)
+                again = run(fit_cuda.level_fit, ab, mi)
+                # the plain version's many sweeps take seconds: the smaller
+                # batches at the full max_iter are held to the batch of 8,
+                # which was held to it
+                if (b, mi) == (8, max_iter):
+                    held = []
+                    t_plain = _time_ms(lambda: held.append(
+                        run(fit_cuda.level_fit_plain, ab, mi)), (), {}, 1)
+                    want = held.pop()
+                elif mi == 2:
+                    want = run(fit_cuda.level_fit_plain, ab, mi)
+                else:
+                    want = tuple(t[:b] for t in of_8[mi])
+                if b == 8:
+                    of_8[mi] = got
+                torch.cuda.synchronize()
+                ok = _same_bits(got, want) and _same_bits(got, again)
+                solo = b == 8 and all(
+                    _same_bits(run(fit_cuda.level_fit, cut(ab, i, i + 1), mi),
+                               (got[0][i:i + 1], got[1][i:i + 1]))
+                    for i in range(b))
+                exits = ["max_iter" if k == mi + 1 else "converged"
+                         for k in sweeps.tolist()]
+                print(f"[3 level_fit] {scene} {mode} B={b} max_iter {mi}: "
+                      f"sweeps per scan {sweeps.tolist()} "
+                      f"({exits.count('max_iter')} max_iter exits), mask and "
+                      f"every column vs plain and run twice "
+                      f"{'ok' if ok else 'MISMATCH'}"
+                      + (f", each scan alone {'ok' if solo else 'MISMATCH'}"
+                         if b == 8 else ""), flush=True)
+                fails.check(ok, f"level_fit {scene} {mode} B={b} max_iter "
+                                f"{mi}: differs from its plain version or "
+                                "between two runs")
+                if b == 8:
+                    fails.check(solo, f"level_fit {scene} {mode} max_iter "
+                                      f"{mi}: a scan alone differs from the "
+                                      "batch")
+                if (b, mi) == (8, max_iter):
+                    per_scan, out8 = sweeps.tolist(), got[0]
+        if mode == "exact":
+            fails.check(not torch.equal(
+                run(fit_cuda.level_fit, a, 2)[1][:, 0],
+                run(fit_cuda.level_fit, a, max_iter)[1][:, 0]),
+                f"level_fit {scene}: the max_iter exit equals the "
+                "convergence exit")
+        # one launch beside the loop of sweeps (kernels, host-driven) on the
+        # same input; the plain version was timed on the run held against
+        t_one = _time_ms(lambda *x: run(fit_cuda.level_fit, x, max_iter), a,
+                         {}, 5)
+        t_loop = _time_ms(lambda *x: run(
+            lambda *y: fit_cuda.fit_sweep_loop(fit_cuda, *y), x, max_iter),
+            a, {}, 3)
+        d_ms = _device_ms(lambda: run(fit_cuda.level_fit, a, max_iter), 5,
+                          "pw_fit_level_kernel") or float("nan")
+        bnd = kernel_bound("level_fit", a, {}, out8, per_scan)
+        print(f"[3 level_fit] {scene} {mode} B=8 N={n} Sp={sp}: one launch "
+              f"{t_one:.3f} ms (device {d_ms:.3f} ms), loop of sweeps "
+              f"{t_loop:.3f} ms, plain {t_plain:.1f} ms; bound {bnd[0]:.4f} ms"
+              f" by {bnd[1]} ({bnd[2]} B, {bnd[3]} flop); sweeps per scan "
+              f"{per_scan}", flush=True)
+        if (scene, mode) == ("velodyne", "exact"):
+            entry = {"fit_ms": t_one, "fit_device_ms": d_ms,
+                     "fit_loop_of_sweeps_ms": t_loop, "fit_plain_ms": t_plain,
+                     "fit_bound_ms": bnd[0], "fit_bound_by": bnd[1],
+                     "fit_sweeps_per_scan": per_scan,
+                     "fit_blocks_per_scan": blocks[8]}
+    return entry
+
+
+def order_stat_checks(dev, fails, inputs) -> dict:
+    """Phase 3's checks of the order statistic on the main path's inputs
+    (label -> arguments): against its plain version wherever the rank is in
+    range, twice with equal bits everywhere, its time by events, its device
+    time and its kernels per call."""
+    import torch
+    from patchwork_tpu_torch.kernels import fit_cuda
+
+    # the worst case beside the main path's inputs: one node holds two
+    # fifths of every scan (a dense near patch), and one block walks it
+    vals, seg, valid, k, s = inputs["median, split remap level"]
+    m = 2 * vals.shape[1] // 5
+    seg, valid = seg.clone(), valid.clone()
+    seg[:, :m] = 0
+    valid[:, :m] = True
+    k = torch.stack([torch.bincount(seg[b][valid[b]].long(), minlength=s)[:s]
+                     for b in range(seg.shape[0])]) // 2
+    inputs = dict(inputs)
+    inputs["skewed, one node holds 2/5 of a scan"] = (
+        vals, seg, valid, k.to(torch.int32), s)
+    entry = {}
+    for label, a in sorted(inputs.items()):
+        vals, seg, valid, k, s = a
+        cnt = torch.stack([torch.bincount(seg[b][valid[b]].long(),
+                                          minlength=s)[:s]
+                           for b in range(seg.shape[0])])
+        ok_k = (k.long() >= 0) & (k.long() < cnt)
+        got = fit_cuda.seg_order_stat(*a)
+        want = fit_cuda.seg_order_stat_plain(*a)
+        ok = (_same_bits(got[ok_k], want[ok_k])
+              and _same_bits(got, fit_cuda.seg_order_stat(*a)))
+        ms = _time_ms(fit_cuda.seg_order_stat, a, {}, 20)
+        t_plain = _time_ms(fit_cuda.seg_order_stat_plain, a, {}, 3)
+        d_ms, per_call = _device_ms(lambda: fit_cuda.seg_order_stat(*a), 20,
+                                    "pw_os_", count=True)
+        d_ms = float("nan") if d_ms is None else d_ms
+        print(f"[3 order stat] {label} B={vals.shape[0]} N={vals.shape[1]} "
+              f"Sp={s}, {int(ok_k.sum())} ranks in range: {ms:.3f} ms a call "
+              f"(device {d_ms:.4f} ms, {per_call:.0f} kernels a call), plain "
+              f"{t_plain:.3f} ms; vs plain and run twice "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        fails.check(ok, f"seg_order_stat {label}: differs from its plain "
+                        "version or between two runs")
+        fails.check(int(ok_k.sum()) > 0, f"seg_order_stat {label}: no rank "
+                                         "in range")
+        if label.startswith("median"):
+            entry.update({"device_ms": d_ms, "kernels_per_call": per_call})
+        elif label.startswith("skewed"):
+            entry.update({"skewed_ms": ms, "skewed_device_ms": d_ms})
+    return entry
+
+
+def run_sum_check(dev, fails) -> None:
+    """The voxel filter on the card (its run sums are a kernel of the port,
+    though of no TPU kernel): two runs with equal bits, equal to the CPU's,
+    and the kernel against its plain version."""
+    import numpy as np
+    import torch
+    from patchwork_tpu_torch.io.synthetic import demo_point_cloud
+    from patchwork_tpu_torch.kernels import seg_cuda
+    from patchwork_tpu_torch.ops.sampling import voxel_grid_filter
+
+    pts = torch.from_numpy(demo_point_cloud(N, seed=1))
+    valid = torch.ones(N, dtype=torch.bool)
+    runs = [voxel_grid_filter(pts.to(dev), valid.to(dev), 2.0)
+            for _ in range(2)]
+    cpu = voxel_grid_filter(pts, valid, 2.0)
+    twice = _same_bits(runs[0], runs[1])
+    as_cpu = _same_bits([t.cpu() for t in runs[0]], cpu)
+    rng = np.random.default_rng(0)
+    first = torch.from_numpy(rng.random(N) < 0.1)
+    first[0] = True
+    a = [pts.to(dev), first.to(dev), valid.to(dev),
+         (torch.cumsum(first.long(), 0) - 1).to(torch.int32).to(dev)]
+    vs_plain = _same_bits(seg_cuda.run_sum(*a), seg_cuda.run_sum_plain(*a))
+    ms = _time_ms(seg_cuda.run_sum, a, {}, 20)
+    lib = torch.zeros_like(a[0])
+    idx = a[3].long()
+    lib_ms = _time_ms(lambda: lib.index_add_(0, idx, a[0]), (), {}, 20)
+    print(f"[3 run sum] voxel_grid_filter N={N}, voxel 2.0, "
+          f"{int(runs[0][1].sum())} voxels: two runs on the card equal "
+          f"{twice}, equal to the CPU's bits {as_cpu}; run_sum vs plain "
+          f"{vs_plain}, {ms:.3f} ms (index_add_, float atomics: {lib_ms:.3f} "
+          f"ms)", flush=True)
+    fails.check(twice, "voxel_grid_filter: two runs on the card differ")
+    fails.check(as_cpu, "voxel_grid_filter: the card's bits differ from the "
+                        "CPU's")
+    fails.check(vs_plain, "run_sum differs from its plain version")
+
+
 class Capture:
     """Keep the arguments of chosen calls of module functions (cloned
     before the call, which may update its inputs in place)."""
@@ -411,6 +635,22 @@ def level_path(engine, fn, *args, **kwargs):
         engine._gate = gate
 
 
+@contextlib.contextmanager
+def card_gate(admits):
+    """Run with the card's gate of the one-launch fit replaced by
+    ``admits(sp)``: ``lambda sp: False`` sends every fit to the loop of
+    sweeps."""
+    from patchwork_tpu_torch.kernels import fit_cuda
+
+    gate = fit_cuda.fit_level_fits
+    fit_cuda.fit_level_fits = (
+        lambda sp, fast, device, level=False: admits(sp))
+    try:
+        yield
+    finally:
+        fit_cuda.fit_level_fits = gate
+
+
 def _time_ms(fn, args, kwargs, reps: int) -> float:
     """Mean CUDA-event time of fn over reps back-to-back calls, each on its
     own clone of the inputs (a sweep updates its inputs in place)."""
@@ -428,9 +668,10 @@ def _time_ms(fn, args, kwargs, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int, pattern: str):
+def _device_ms(fn, reps: int, pattern: str, count: bool = False):
     """Mean device time per call (torch.profiler) of the kernels whose
-    name matches ``pattern``; None where the profiler saw none."""
+    name matches ``pattern``; None where the profiler saw none.  With
+    ``count`` also the number of those kernels per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -444,12 +685,13 @@ def _device_ms(fn, reps: int, pattern: str):
         torch.cuda.synchronize()
     # kernels only: the host-side op of a PyTorch call carries the device
     # time of the kernels it launched as its own
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and re.search(pattern, ev.key)]
     total = sum(getattr(ev, "self_device_time_total",
                         getattr(ev, "self_cuda_time_total", 0.0))
-                for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA
-                and re.search(pattern, ev.key))
-    return total / reps / 1e3 if total > 0 else None
+                for ev in evs)
+    ms = total / reps / 1e3 if total > 0 else None
+    return (ms, sum(ev.count for ev in evs) / reps) if count else ms
 
 
 def scans_per_s(xyz, valid, cfg, plain, reps, warm=True):
@@ -696,6 +938,25 @@ def phase7(dev, card: str, fails: Failures) -> dict:
               flush=True)
         fails.check(ok, "CLI kitti: counts differ")
 
+        # the same frame with a node table above the card's gate: the fits
+        # of its deeper levels run as loops of sweeps
+        wide = {"max_active_nodes_cfg": WIDE_NODES}
+        out = io.StringIO()
+        before = dict(front)
+        with contextlib.redirect_stdout(out):
+            rc = front_end(cli.main, [
+                "--kitti", kdir, "--frame", "0", "--use-patchwork",
+                "--device", dev.type, "--config-json", json.dumps(wide),
+                "--out-prefix", os.path.join(tmp, "wide")])
+        want = counts(filter_ground(*on_card(pts), PatchworkConfig(**wide)))
+        sweeps = front["apply_sweep"] - before["apply_sweep"]
+        ok = rc == 0 and _cli_counts(out.getvalue()) == want and sweeps > 0
+        print(f"[7c cli] the same frame with {wide}: rc {rc}, counts "
+              f"{_cli_counts(out.getvalue())} vs filter_ground {want}, "
+              f"{sweeps} apply sweeps", flush=True)
+        fails.check(ok, "CLI kitti above the card's gate: counts differ or "
+                        "no loop of sweeps ran")
+
         # (d) the CLI as a process: 3-topic bag -> fusion -> engine
         bag = os.path.join(tmp, "iac.mcap")
         write_mcap_topics(bag, {c.topic_name + "/points": [x] for c, x in
@@ -830,6 +1091,8 @@ def main() -> int:
     velo_gen = batch(velodyne128, range(B), N_GEN)
     split_gen = batch(split_terrain_cloud, range(B), N_GEN)
     velo_big = batch(velodyne128, range(B), N_BIG)
+    cfg_wide = PatchworkConfig(max_active_nodes_cfg=WIDE_NODES)
+    wide = batch(split_terrain_cloud, range(B_WIDE), N_WIDE)
 
     # ---- 3. kernels vs plain versions, on the main path's inputs ----
     stamp("3 kernels")
@@ -843,22 +1106,74 @@ def main() -> int:
         family_of[f] = f
     # (label, mode) -> (wrapper name, module, args, kwargs)
     captured = {}
+    level_fit_inputs = {}   # (scene, mode) -> level_fit's arguments
+    # the loop of sweeps as the engine runs it today: the table above the
+    # card's gate (Sp 4224), the gate as it is.  The second iteration of the
+    # first deeper level's fit: its moments2 sweep, plane table and apply
+    # sweep (with the level's plan).  These are the shapes the sweeps' JSON
+    # entries report.
+    sweep_members = ["apply_sweep", "moments2_sweep", "plane_table"]
+    cap_w = Capture(fit_cuda, sweep_members, {"apply_sweep": 3,
+                                               "moments2_sweep": 2,
+                                               "plane_table": 2})
+    try:
+        filter_ground_batched(*wide, cfg_wide)
+    finally:
+        cap_w.restore()
+    for name in sweep_members:
+        captured[(name, "exact")] = (name, fit_cuda) + cap_w.saved[name]
     for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
-        cap_k = Capture(fit_cuda, members, {"apply_sweep": 5,
-                                             "moments2_sweep": 5,
-                                             "plane_table": 5})
+        # a split-terrain batch as the main path runs it: every wrapper of
+        # the level family at its first call, a remap level (Sp 256) and
+        # that level's fit
+        cap_k = Capture(fit_cuda, [m for m in members
+                                   if m not in sweep_members] + ["level_fit"],
+                        {"level_fit": 2})
         cap_l = Capture(engine, ["level"], {"level": 2})
         try:
             filter_ground_batched(*split, cfg)
         finally:
-            cap_k.restore()
             cap_l.restore()
+            cap_k.restore()
+        level_fit_inputs[("split remap level", mode)] = \
+            cap_k.saved.pop("level_fit")[0]
         for name, v in cap_k.saved.items():
             captured[(name, mode)] = (name, fit_cuda) + v
         captured[("level", mode)] = ("level", engine) + cap_l.saved["level"]
+        # beside them, labelled: the sweeps at B=8 x 131072 (Sp 256), which
+        # only a shut gate gives them now (the same level fitted as a loop
+        # of sweeps; the shapes earlier readings were taken at)
+        cap_g = Capture(fit_cuda, sweep_members,
+                        {"apply_sweep": 5, "moments2_sweep": 5,
+                         "plane_table": 5})
+        try:
+            with card_gate(lambda sp: False):
+                filter_ground_batched(*split, cfg)
+        finally:
+            cap_g.restore()
+        for name, v in cap_g.saved.items():
+            captured[(name + "/gate shut", mode)] = (name, fit_cuda) + v
+        cap_f = Capture(fit_cuda, ["level_fit"], {})
+        try:
+            filter_ground_batched(*velo, cfg)       # level 0, Sp 128
+        finally:
+            cap_f.restore()
+        level_fit_inputs[("velodyne", mode)] = cap_f.saved["level_fit"][0]
+    # the order statistic as the main path calls it: the split median at Sp
+    # 256 (above) and the percentile seeds of level 0 at Sp 128
+    cap_o = Capture(fit_cuda, ["seg_order_stat"], {})
+    try:
+        filter_ground_batched(*velo, PatchworkConfig(
+            adaptive_seed_height=False))
+    finally:
+        cap_o.restore()
+    order_stat_inputs = {
+        "median, split remap level": captured[("seg_order_stat",
+                                               "exact")][2],
+        "percentile, velodyne level 0": cap_o.saved["seg_order_stat"][0]}
     # the generic engine: "pallas" segment ops at B x N, and the fit of
     # "fused" above the gate at B x N_GEN (fit_level at level 0, the loop of
-    # sweeps at the deeper levels)
+    # sweeps at the deeper levels where the card's gate is shut above Sp 128)
     cap_s = Capture(seg_cuda, ["seg_gather", "seg_minmax"], {"seg_gather": 3})
     try:
         filter_ground_batched(*velo, cfg_pallas)
@@ -873,7 +1188,8 @@ def main() -> int:
                         {"apply_sweep": 3, "moments2_sweep": 3})
         cap_e = Capture(engine, ["_fused_fit_resid"], {})
         try:
-            filter_ground_batched(*split_gen, cfg)
+            with card_gate(lambda sp: sp < 256):
+                filter_ground_batched(*split_gen, cfg)
         finally:
             cap_f.restore()
             cap_e.restore()
@@ -881,13 +1197,14 @@ def main() -> int:
         captured[("fit_level", mode)] = (("fit_level", fit_cuda)
                                          + cap_f.saved["fit_level"])
         for name in ("apply_sweep", "moments2_sweep"):
-            captured[(name + "/fit", mode)] = ((name, fit_cuda)
+            captured[(name + "/fit gate shut", mode)] = ((name, fit_cuda)
                                                + cap_f.saved[name])
 
     # the apply sweep's inputs per scene for the redesigned kernels' checks
     cap_v = Capture(fit_cuda, ["apply_sweep"], {"apply_sweep": 5})
     try:
-        filter_ground_batched(*velo, cfg_exact)
+        with card_gate(lambda sp: False):
+            filter_ground_batched(*velo, cfg_exact)
     finally:
         cap_v.restore()
     velo_sweep = cap_v.saved["apply_sweep"][0]
@@ -897,9 +1214,10 @@ def main() -> int:
         "velodyne shuffled": (velo_sweep[0][:, :, perm].contiguous(),
                               velo_sweep[1][:, :, perm].contiguous())
         + tuple(velo_sweep[2:]),
-        "split terrain": captured[("apply_sweep", "exact")][2],
-        "split terrain, generic fit": captured[("apply_sweep/fit",
-                                                "exact")][2]}
+        "wide table, main path": captured[("apply_sweep", "exact")][2],
+        "split terrain": captured[("apply_sweep/gate shut", "exact")][2],
+        "split terrain, generic fit": captured[(
+            "apply_sweep/fit gate shut", "exact")][2]}
 
     exact_only = {"seg_order_stat", "remap_nodes", "remap_points",
                   "node_stats", "early_outs", "deficient_round",
@@ -976,7 +1294,7 @@ def main() -> int:
                     f"({bound[label][2]} B, {bound[label][3]} flop)"
                     + (f" library {lib_ms[label]:.3f} ms"
                        if lib_ms[label] is not None else ""))
-        print(f"[3 kernels] {label:19s} {mode:5s} max_abs_err {e:.3g} "
+        print(f"[3 kernels] {label:28s} {mode:5s} max_abs_err {e:.3g} "
               f"kernel {t_k:.3f} ms plain {t_p:.3f} ms{tail} "
               f"{'ok' if fine else 'MISMATCH'}", flush=True)
         fails.check(fine, f"kernel {label} ({mode}) disagrees with its plain "
@@ -987,12 +1305,22 @@ def main() -> int:
         dev, fails, sweep_inputs,
         {mode: captured[("fit_level", mode)][2:] for mode in ("exact", "fast")},
         captured[("seg_gather", "exact")][2])
+    stamp("3 level_fit")
+    extra["level"] = level_fit_checks(dev, fails, level_fit_inputs)
+    extra["seg_order_stat"] = order_stat_checks(dev, fails, order_stat_inputs)
+    run_sum_check(dev, fails)
 
     # device times of the moments2 sweep and seg_gather, and of the
     # library call beside seg_gather (events read max(host, device) a call)
-    name, module, args, kw = captured[("moments2_sweep", "exact")]
-    extra["moments2_sweep"] = {"device_ms": _device_ms(
-        lambda: fit_cuda.moments2_sweep(*args, **kw), 50, "pw_m2")}
+    for fam, pattern in (("apply_sweep", "pw_apply"),
+                         ("moments2_sweep", "pw_m2")):
+        extra[fam] = {}
+        for key, label in (("device_ms", fam),
+                           ("device_ms_gate_shut_b8", fam + "/gate shut")):
+            name, module, args, kw = captured[(label, "exact")]
+            extra[fam][key] = _device_ms(
+                lambda: getattr(fit_cuda, name)(*_clone(args), **kw), 50,
+                pattern)
     table, seg = captured[("seg_gather", "exact")][2]
     idx = seg.long()[:, None, :].expand(-1, table.shape[1], -1)
     extra["seg_gather"] = {
@@ -1000,7 +1328,8 @@ def main() -> int:
                                 "pw_gather"),
         "library_device_ms": _device_ms(lambda: torch.gather(table, 2, idx),
                                         100, r"^(?!.*pw_).*gather")}
-    print(f"[3 device] moments2_sweep {extra['moments2_sweep']}; seg_gather "
+    print(f"[3 device] apply_sweep {extra['apply_sweep']}; moments2_sweep "
+          f"{extra['moments2_sweep']}; seg_gather "
           f"{extra['seg_gather']} (ms of device time, torch.profiler)",
           flush=True)
 
@@ -1009,13 +1338,9 @@ def main() -> int:
     for mode, (args, kw) in sorted(fit_inputs.items()):
         t_one = _time_ms(engine._fused_fit_resid, args, kw, 3)
         g_one = engine._fused_fit_resid(*_clone(args), **kw)[0]
-        gate = fit_cuda.megakernel_fits
-        fit_cuda.megakernel_fits = lambda n, sp: False
-        try:
+        with card_gate(lambda sp: False):
             t_loop = _time_ms(engine._fused_fit_resid, args, kw, 3)
             g_loop = engine._fused_fit_resid(*_clone(args), **kw)[0]
-        finally:
-            fit_cuda.megakernel_fits = gate
         d = int((g_one != g_loop).sum().item())
         print(f"[3 kernels] level-0 fit B={B} N={N_GEN} {mode}: fit_level "
               f"{t_one:.3f} ms, loop of sweeps {t_loop:.3f} ms; differing "
@@ -1032,10 +1357,18 @@ def main() -> int:
         for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
             before = dict(fit_cuda.LAUNCHES)
             g1 = filter_ground_batched(xyz, valid, cfg).ground
+            d = {k: v - before[k] for k, v in fit_cuda.LAUNCHES.items()}
             print(f"[4 slice] {scene} {mode} B={B} N={N}: launches of one "
-                  f"batch", {k: v - before[k] for k, v in
-                             fit_cuda.LAUNCHES.items() if v > before[k]},
-                  flush=True)
+                  f"batch", {k: v for k, v in d.items() if v}, flush=True)
+            # every fit of the level path is one launch of the level family:
+            # no sweep, no plan of its own; velodyne runs one level, eight
+            # launches around its fit and one for it
+            fails.check(d["apply_sweep"] == 0 and d["moments2_sweep"] == 0
+                        and d["sweep_plan"] == 0 and d["level"] > 0,
+                        f"{scene} {mode}: the level path launched sweeps {d}")
+            if scene == "velodyne":
+                fails.check(d["level"] == 9, f"velodyne {mode}: {d['level']} "
+                            "launches of the level family, not 9")
             g2 = filter_ground_batched(xyz, valid, cfg).ground
             masks[(scene, mode)] = g1
             fails.check(torch.equal(g1, g2),
@@ -1046,7 +1379,9 @@ def main() -> int:
 
     # the generic level engine, its counts read on their own; the level path
     # (engine.level) must not run, though the loop of sweeps launches the
-    # level family's plane table
+    # level family's plane table.  Every fit is one fit_level launch, at
+    # 262144 points too; only a table above the card's gate takes the loop
+    # of sweeps (apply, moments2, their plan)
     def counted(data, cfg):
         before = dict(fit_cuda.LAUNCHES)
         cap = Capture(engine, ["level"], {})
@@ -1058,6 +1393,7 @@ def main() -> int:
         d["level path"] = cap.calls.get("level", 0)
         return g, d
 
+    stamp("4 generic")
     fit_cuda.reset_launches()
     gen = {}
     gen["pallas"], d = counted(velo, cfg_pallas)
@@ -1068,15 +1404,52 @@ def main() -> int:
             gen[(scene, mode)], d = counted(data, cfg)
             print(f"[4 generic] {scene} {mode} B={B} N={N_GEN}: launches of "
                   f"one batch", {k: v for k, v in d.items() if v}, flush=True)
-            fails.check(d["level path"] == 0 and d["fit_level"] > 0,
+            fails.check(d["level path"] == 0 and d["fit_level"] > 0
+                        and d["apply_sweep"] == 0,
                         f"{scene} {mode} N={N_GEN}: not the generic path "
-                        f"with fit_level {d}")
+                        f"with fit_level only {d}")
     gen["big"], d = counted(velo_big, cfg_exact)
-    fails.check(d["level path"] == 0 and d["fit_level"] == 0
-                and d["apply_sweep"] > 0,
-                f"velodyne128 N={N_BIG}: not the loop of sweeps {d}")
+    print(f"[4 generic] velodyne128 exact B={B} N={N_BIG}: launches of one "
+          f"batch", {k: v for k, v in d.items() if v}, flush=True)
+    fails.check(d["level path"] == 0 and d["fit_level"] > 0
+                and d["apply_sweep"] == 0,
+                f"velodyne128 N={N_BIG}: not one fit_level launch a level {d}")
+    sp_wide = fit_cuda.sp_width(cfg_wide.max_active_nodes + 1)
+    gen["wide"], d = counted(wide, cfg_wide)
+    print(f"[4 generic] split exact B={B_WIDE} N={N_WIDE}, "
+          f"max_active_nodes_cfg {WIDE_NODES} (Sp {sp_wide}, above the "
+          f"card's gate: {not fit_cuda.fit_level_fits(sp_wide, False, dev)}): "
+          f"launches of one batch", {k: v for k, v in d.items() if v},
+          flush=True)
+    fails.check(not fit_cuda.fit_level_fits(sp_wide, False, dev)
+                and fit_cuda.fit_level_fits(256, True, dev, level=True),
+                "the card's gate: Sp 256 refused or the wide table admitted")
+    fails.check(d["level path"] == 0 and d["fit_level"] > 0
+                and d["apply_sweep"] > 0 and d["moments2_sweep"] > 0
+                and d["sweep_plan"] > 0,
+                f"wide table: no loop of sweeps above the card's gate {d}")
     launches_gen = dict(fit_cuda.LAUNCHES)
     launches = {k: launches_level[k] + launches_gen[k] for k in launches_gen}
+
+    stamp("4 against plain")
+
+    def plain_diff(data, cfg, got):
+        """Differing mask bits against the plain path, how many were
+        compared, and the plain path's scans/s on that run (CUDA events).
+        The plain path takes seconds a batch, so fast mode, where no
+        bitwise claim is made, compares the first two scans."""
+        nb = 2 if cfg.fast_covariance else data[0].shape[0]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gp = filter_ground_batched(data[0][:nb], data[1][:nb], cfg,
+                                   plain=True).ground
+        end.record()
+        torch.cuda.synchronize()
+        return (int((gp != got[:nb]).sum().item()), gp.numel(),
+                nb / (start.elapsed_time(end) / 1000.0))
+
+    plain_rate = {}     # (scene, mode) -> (scans/s of the plain path, scans)
 
     n_api = len(res_api[0])
     n_batch = int(masks[("velodyne", "exact")][0].sum().item())
@@ -1087,10 +1460,11 @@ def main() -> int:
         ex = masks[(scene, "exact")]
         fa = masks[(scene, "fast")]
         for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
-            gp = filter_ground_batched(xyz, valid, cfg, plain=True).ground
-            diff = int((gp != masks[(scene, mode)]).sum().item())
+            diff, of, rate = plain_diff((xyz, valid), cfg,
+                                        masks[(scene, mode)])
+            plain_rate[(scene, mode)] = (rate, of // xyz.shape[1])
             print(f"[4 slice] {scene} {mode}: kernel vs plain differing mask "
-                  f"bits {diff} of {gp.numel()}", flush=True)
+                  f"bits {diff} of {of}", flush=True)
             if mode == "exact":
                 fails.check(diff == 0, f"{scene} exact: {diff} mask bits "
                                        "differ from the plain path")
@@ -1105,15 +1479,15 @@ def main() -> int:
             fails.check(iou >= IOU_FAST_MIN, f"{scene}: fast IoU {iou} < 0.999")
         pa_gpu = binning.assign_patches(xyz, valid, cfg_exact)
         pa_cpu = binning.assign_patches(xyz.cpu(), valid.cpu(), cfg_exact)
-        flips = int((pa_gpu.patch.cpu() != pa_cpu.patch).sum().item())
+        flips = (pa_gpu.patch.cpu() != pa_cpu.patch).sum(1).tolist()
         print(f"[4 slice] {scene}: patch-id flips CUDA vs CPU torch.atan2 "
-              f"binning: {flips}", flush=True)
+              f"binning: {sum(flips)} of {pa_cpu.patch.numel()} points, per "
+              f"scan {flips}", flush=True)
     print(f"[4 slice] RecursivePatchwork.filter_ground_points: {n_api} ground,"
           f" {len(res_api[1])} non-ground of {N}", flush=True)
     print(f"[4 slice] main-path launches, level path {launches_level}",
           flush=True)
-    for fam in ("seg_order_stat", "apply_sweep", "moments2_sweep", "level",
-                "seg_sum"):
+    for fam in ("seg_order_stat", "level", "seg_sum"):
         fails.check(launches_level[fam] > 0,
                     f"kernel family {fam} never launched on the level path")
 
@@ -1128,14 +1502,14 @@ def main() -> int:
     for scene, data in (("velodyne128", velo_gen), ("split", split_gen)):
         for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
             g = gen[(scene, mode)]
-            gp = filter_ground_batched(*data, cfg, plain=True).ground
+            d_plain, of, _ = plain_diff(data, cfg, g)
             gl = level_path(engine, filter_ground_batched, *data, cfg).ground
-            d_plain = int((gp != g).sum().item())
             d_level = int((gl != g).sum().item())
             iou = min_iou(g, gl)
             print(f"[4 generic] {scene} B={B} N={N_GEN} {mode}: kernel vs "
-                  f"plain differing mask bits {d_plain}; vs the level path "
-                  f"{d_level} of {g.numel()} (min IoU {iou:.6f})", flush=True)
+                  f"plain differing mask bits {d_plain} of {of}; vs the level "
+                  f"path {d_level} of {g.numel()} (min IoU {iou:.6f})",
+                  flush=True)
             if mode == "exact":
                 fails.check(d_plain == 0, f"{scene} N={N_GEN} exact: "
                                           f"{d_plain} bits differ from plain")
@@ -1156,6 +1530,12 @@ def main() -> int:
     print(f"[4 generic] velodyne128 B={B} N={N_BIG} exact: kernel vs plain "
           f"differing mask bits {diff}", flush=True)
     fails.check(diff == 0, f"velodyne128 N={N_BIG}: {diff} bits differ")
+    diff = int((filter_ground_batched(*wide, cfg_wide, plain=True).ground
+                != gen["wide"]).sum().item())
+    print(f"[4 generic] split B={B_WIDE} N={N_WIDE} exact, the loop of sweeps "
+          f"above the card's gate: kernel vs plain differing mask bits {diff}",
+          flush=True)
+    fails.check(diff == 0, f"wide table: {diff} bits differ from plain")
     print(f"[4 generic] main-path launches, generic path {launches_gen}",
           flush=True)
     for fam in ("seg_sum", "seg_gather", "seg_minmax", "fit_level",
@@ -1189,10 +1569,10 @@ def main() -> int:
     stamp("6 timing")
     for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
         rk = scans_per_s(*velo, cfg, False, 10)
-        rp = scans_per_s(*velo, cfg, True, 1, warm=False)   # ran in phase 4
+        rp, nb = plain_rate[("velodyne", mode)]     # its run in phase 4
         print(f"[6 timing] velodyne B={B} N={N} {mode}: kernel path "
-              f"{rk:.1f} scans/s, plain path {rp:.2f} scans/s on {card}",
-              flush=True)
+              f"{rk:.1f} scans/s, plain path {rp:.2f} scans/s (one batch of "
+              f"{nb}) on {card}", flush=True)
     for n, data, mode, cfg in ((N_GEN, velo_gen, "exact", cfg_exact),
                                (N_GEN, velo_gen, "fast", cfg_fast),
                                (N_BIG, velo_big, "exact", cfg_exact)):

@@ -6,9 +6,9 @@ the mask form of its enhanced filtering,
 :func:`sample_ground_and_obstacles_masks`.  Point clouds are padded to
 power-of-two capacities (``api.py:31-35``), so scans of any size reuse a
 few shapes.  Under the default ``segment_impl="fused"``, capacities above
-the fit gate (``fit_cuda.megakernel_fits``: any cloud of 131,073 points or
+the path gate (``fit_cuda.megakernel_fits``: any cloud of 131,073 points or
 more, whose bucket is 262,144) take the generic level engine, as in the
-JAX package.
+JAX package; there too every level's fit is one launch.
 """
 
 from __future__ import annotations

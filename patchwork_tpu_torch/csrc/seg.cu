@@ -159,3 +159,42 @@ PW_EXPORT int pw_seg_minmax(const float* vals, const int* seg,
                                                      cs);
   return (int)cudaGetLastError();
 }
+
+// Sums of runs of consecutive rows, each run added in row order from +0.0
+// (the voxel-grid filter's centroids, ops/sampling.py: a sorted cloud's
+// voxels are runs).  Not a port of a TPU kernel: the JAX package leaves
+// this sum to XLA.  It stands in for index_add_, whose float atomics on the
+// card fix no order.  rows (N, C), C <= 4; a run starts at i where first[i]
+// and goes on while the next row is live and starts no run; its sums go to
+// sums[run[i]] and its length to cnts[run[i]], both zeroed by the caller.
+// The thread of a run's first row walks the run: bound by the longest run,
+// not by bytes, which is the price of the fixed order.
+__global__ void pw_run_sum_kernel(const float* __restrict__ rows,
+                                  const unsigned char* __restrict__ first,
+                                  const unsigned char* __restrict__ live,
+                                  const int* __restrict__ run,
+                                  float* __restrict__ sums,
+                                  float* __restrict__ cnts, int N, int C) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N || !first[i]) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int j = i;
+  do {
+    for (int c = 0; c < C; ++c) acc[c] += rows[(size_t)j * C + c];
+    ++j;
+  } while (j < N && live[j] && !first[j]);
+  int r = run[i];
+  for (int c = 0; c < C; ++c) sums[(size_t)r * C + c] = acc[c];
+  cnts[r] = (float)(j - i);
+}
+
+PW_EXPORT int pw_run_sum(const float* rows, const unsigned char* first,
+                         const unsigned char* live, const int* run,
+                         float* sums, float* cnts, int N, int C,
+                         void* stream) {
+  if (C < 1 || C > 4) return (int)cudaErrorInvalidValue;
+  if (N > 0)
+    pw_run_sum_kernel<<<(N + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        rows, first, live, run, sums, cnts, N, C);
+  return (int)cudaGetLastError();
+}

@@ -40,8 +40,7 @@ _F = ctypes.c_float
 
 # C entry point -> argument types (pointers and the stream are void*)
 _SIGNATURES = {
-    "pw_seg_order_stat": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                          _VP],
+    "pw_seg_order_stat": [_VP] * 9 + [_I, _I, _I, _VP],
     "pw_seg_sum": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_sweep_plan": [_VP] * 8 + [_I] * 6 + [_VP],
     "pw_apply_sweep": [_VP] * 12 + [_I] * 6 + [_VP],
@@ -61,8 +60,10 @@ _SIGNATURES = {
     "pw_finish_nodes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_seg_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_seg_minmax": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "pw_fit_level": [_VP] * 16 + [_I] * 7 + [_VP],
-    "pw_fit_level_blocks": [_I, _I, _I, _I],
+    "pw_run_sum": [_VP] * 6 + [_I, _I, _VP],
+    "pw_fit_level": [_VP] * 16 + [_I] * 8 + [_VP],
+    "pw_level_fit": [_VP] * 18 + [_I] * 9 + [_VP],
+    "pw_fit_level_blocks": [_I, _I, _I, _I, _I],
 }
 
 

@@ -13,6 +13,7 @@ family             replaces (patchwork_tpu/kernels/...)
                    (with ``sweep_plan``, built once per level for it)
 ``moments2_sweep`` fit_pallas.py ``fused_moments2`` / ``_moments2_kernel``
 ``level``          fit_pallas.py ``level_megakernel`` / ``_level_kernel``
+                   (its fit while-loop is ``level_fit``, one launch)
 ``fit_level``      fit_pallas.py ``fit_level_megakernel`` / ``_mega_kernel``
 =================  ==================================================
 
@@ -55,20 +56,22 @@ __all__ = [
     "moments2_sweep", "remap_r1", "remap_r1b", "remap_nodes", "remap_points",
     "node_stats",
     "early_outs", "deficient_round", "seed_init", "plane_table",
-    "split_decision", "finish_nodes", "fit_pack", "megakernel_fits",
-    "fit_level", "fit_level_blocks",
+    "split_decision", "finish_nodes", "fit_sweep_loop", "level_fit",
+    "fit_pack", "megakernel_fits", "fit_level", "fit_level_blocks",
+    "fit_level_smem_bytes", "fit_level_fits",
 ]
 
 TILE = 256           # points per partial sum (one CUDA block per tile)
 _EPS = 1e-12
 _TWO_PI_3 = 2.0943951023931953
 _BIG = 3.0e38
-_HIST_SMEM_LIMIT = 200 * 1024    # bytes of one order-stat block's histogram
+_OS_SMEM_LIMIT = 48 * 1024       # bytes of one order-stat block's counters
+_SMEM_OPTIN_H100 = 232448        # bytes a block may ask for on an H100
 
 
 LAUNCHES = {"seg_order_stat": 0, "apply_sweep": 0, "moments2_sweep": 0,
             "level": 0, "seg_sum": 0, "fit_level": 0, "seg_gather": 0,
-            "seg_minmax": 0, "sweep_plan": 0}
+            "seg_minmax": 0, "sweep_plan": 0, "run_sum": 0}
 
 
 def reset_launches() -> None:
@@ -205,13 +208,15 @@ def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
     k (B, num_segs) int32.  Returns (B, num_segs) f32; segments with no
     candidate or k out of range return garbage (mask downstream).
 
-    CUDA: 5 rounds of a 128-bucket histogram over order-preserving int32
-    keys (7 key bits per round, 4 in the last), as ``_orderstat_rounds``.
-    Each block counts a chunk of one scan's points into a shared-memory
-    (segment, bucket) histogram with integer atomics and adds its nonzero
-    bins to global memory; one thread per segment then picks the bucket
-    that holds rank k.  Bound by the atomics of the counting pass; the
-    shared histogram keeps global atomics to one per touched bin per block.
+    CUDA: three launches.  The points are counted per segment, their
+    order-preserving int32 keys written segment by segment into a (B, N)
+    buffer (in no order inside a segment: the k-th smallest of a multiset
+    needs none), and a block per (scan, segment) then runs the five
+    histogram rounds of ``_orderstat_rounds`` (7 key bits per round, 4 in
+    the last) over its own keys, 128 buckets in shared memory, with no
+    launch between the rounds.  Counts are integers, so the result is
+    exact.  Bound by the latency of the passes, not by its 9 bytes a point:
+    every point is read twice and its key five times out of the L2.
     """
     if not _on_card(vals, seg, valid, k):
         return seg_order_stat_plain(vals, seg, valid, k, num_segs)
@@ -223,15 +228,16 @@ def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
     b, n = vals.shape
     if seg.shape != (b, n) or valid.shape != (b, n) or k.shape != (b, num_segs):
         raise ValueError("seg_order_stat: shape mismatch")
-    if num_segs * 128 * 4 > _HIST_SMEM_LIMIT:
-        raise ValueError(f"num_segs={num_segs} exceeds the shared histogram")
+    if 2 * num_segs * 4 > _OS_SMEM_LIMIT:
+        raise ValueError(f"num_segs={num_segs} exceeds the shared counters")
     out = torch.empty((b, num_segs), dtype=torch.float32, device=vals.device)
-    hist = torch.zeros((b, num_segs, 128), dtype=torch.int32,
+    # per segment: its count, what of its range is taken, where it starts
+    work = torch.zeros((3, b, num_segs), dtype=torch.int32,
                        device=vals.device)
-    lo = torch.empty((b, num_segs), dtype=torch.int32, device=vals.device)
-    kw = torch.empty_like(lo)
+    keys = torch.empty((b, n), dtype=torch.int32, device=vals.device)
     _launch("seg_order_stat", "pw_seg_order_stat",
-            (vals, seg, valid, k, out, hist, lo, kw), b, n, num_segs)
+            (vals, seg, valid, k, out, work[0], work[1], work[2], keys), b, n,
+            num_segs)
     return out
 
 
@@ -995,6 +1001,134 @@ def finish_nodes(state: torch.Tensor, flags: torch.Tensor, sd: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# level_fit  (the fit while-loop of _level_kernel, fit_pallas.py:1357-1425):
+# as a loop of the sweeps above, and in one launch
+# ---------------------------------------------------------------------------
+
+def fit_sweep_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast,
+                   plan=None):
+    """The fit while-loop of a level (fit_pallas.py:1357-1425) as a loop of
+    the sweeps of ``k`` (this module or :data:`plain`): from the sums ``m1``
+    of the seeded mask, plane table then apply sweep until no scan changed
+    or max_iter, then the final can = 0 sweep whose sums give the residual.
+    That sweep runs only on a max_iter exit: after a convergence exit the
+    mask equals the last sweep's input, so its sums are bitwise those of
+    the last sweep.  ``state`` row 0 (the mask) is updated in place; returns
+    the final sums (B, R, Sp).  Row 3 (the node ids) is fixed for the loop,
+    so one sweep plan (``plan``, built here unless given) serves every
+    sweep, the apply sweeps and the moments2 sweeps alike.  The host reads
+    one flag per iteration.  It takes any Sp: the sweeps keep their tables
+    in device memory."""
+    if plan is None:
+        plan = k.sweep_plan(state, fit_row.shape[1])
+
+    def make_tab(m1, with_can):
+        c = (m1[:, 1:4] / torch.clamp(m1[:, 0:1], min=1.0)).contiguous()
+        m2 = None if fast else k.moments2_sweep(pts, state, c, trash, plan)
+        return k.plane_table(m1.contiguous(), c, m2,
+                             fit_row if with_can else None, tau_row, fast)
+
+    changed = True
+    for _ in range(max_iter):
+        m1 = k.apply_sweep(pts, state, make_tab(m1, True), trash, fast, plan)
+        changed = bool((m1[:, 5] > 0.0).any())
+        if not changed:
+            break
+    if changed:
+        m1 = k.apply_sweep(pts, state, make_tab(m1, False), trash, fast,
+                           plan)
+    return m1
+
+
+def _fit_scratch(pts, sp, sweeps_out):
+    """What a one-launch fit over (B, 8, N) points takes beside its inputs:
+    the plan's buffers with their build scratch, the plane table, the
+    zeroed (3, B) flags, barrier counts and sweep counts, and where the
+    sweep counts go (``sweeps_out`` if given, checked)."""
+    b, _, n = pts.shape
+    plan, bitmap = _plan_buffers(b, n, sp, pts.device)
+    tab = torch.empty((b, 7, sp), dtype=torch.float32, device=pts.device)
+    sync = torch.zeros((3, b), dtype=torch.int32, device=pts.device)
+    if sweeps_out is None:
+        sweeps_out = sync[2]
+    elif (sweeps_out.shape != (b,) or sweeps_out.dtype != torch.int32
+          or not _on_card(pts, sweeps_out)):
+        raise ValueError("sweeps_out must be (B,) int32 on the points' device")
+    return plan, bitmap, tab, sync, sweeps_out
+
+
+def level_fit_plain(pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
+    return fit_sweep_loop(plain, pts, state, m1, fit_row, tau_row, trash,
+                          max_iter, fast)
+
+
+def level_fit(pts: torch.Tensor, state: torch.Tensor, m1: torch.Tensor,
+              fit_row: torch.Tensor, tau_row: torch.Tensor, trash: int,
+              max_iter: int, fast: bool,
+              sweeps_out: torch.Tensor | None = None,
+              _blocks_per_scan: int = 0) -> torch.Tensor:
+    """The fit while-loop of one engine level (``_level_kernel``,
+    fit_pallas.py:1357-1425) in one launch.
+
+    pts (B, 8, N) and state (B, 4, N) in the level layout (row 0 of
+    ``state``, the seeded mask, is updated in place; row 3 holds the node
+    ids); m1 (B, R, Sp) the sums of the seeded mask (:func:`seed_init`),
+    R = 12 in fast mode, else 6; fit_row (B, Sp) 0/1, the nodes that fit;
+    tau_row (B, Sp).  Returns the final sums (B, R, Sp), every column as the
+    loop of sweeps (:func:`fit_sweep_loop`, its plain version) leaves them:
+    the trash column and the padding columns too.  ``sweeps_out`` (B,) int32
+    on the card, if given, receives the apply sweeps each scan ran.
+    ``_blocks_per_scan`` is for tests and the timing tool only.
+
+    CUDA: ``fit_level``'s device code (csrc/fitloop.cu) reading the level
+    layout: one co-operative launch, the card's co-resident blocks / B
+    blocks per scan, a barrier per scan in device memory, the sweep plan
+    built in the kernel, each scan leaving on its own, no host read.  Bound
+    by latency: up to 101 sweeps, each waiting for the sums of the one
+    before.  The first sums are ``seed_init``'s, handed in: no sweep 0 runs.
+    Where :func:`fit_level_fits` is false the launch is refused and raises;
+    the engine asks first and takes the loop of sweeps there.  A batch
+    above the card's co-resident blocks is cut into several launches.
+    """
+    if not _on_card(pts, state, m1, fit_row, tau_row):
+        return level_fit_plain(pts, state, m1, fit_row, tau_row, trash,
+                               max_iter, fast)
+    _check_points(pts, state)
+    _f32(m1, fit_row, tau_row)
+    b, _, n = pts.shape
+    r = _sweep_rows(fast)
+    sp = fit_row.shape[1]
+    if m1.shape != (b, r, sp) or fit_row.shape != (b, sp) \
+            or tau_row.shape != (b, sp):
+        raise ValueError(f"level_fit: m1 must be ({b}, {r}, Sp), fit_row and "
+                         f"tau_row ({b}, Sp)")
+    if not 0 <= trash < sp:
+        raise ValueError(f"trash={trash} outside the table width {sp}")
+    if _blocks_per_scan < 0:
+        raise ValueError("_blocks_per_scan must be >= 0")
+    dev = pts.device
+    held = _fit_level_held(sp, fast, True)
+    if b > held:
+        if sweeps_out is None:
+            sweeps_out = torch.empty(b, dtype=torch.int32, device=dev)
+        return torch.cat([
+            level_fit(pts[i:i + held], state[i:i + held], m1[i:i + held],
+                      fit_row[i:i + held], tau_row[i:i + held], trash,
+                      max_iter, fast, sweeps_out[i:i + held],
+                      _blocks_per_scan)
+            for i in range(0, b, held)])
+    stats = torch.empty((b, r, sp), dtype=torch.float32, device=dev)
+    plan, bitmap, tab, sync, sweeps_out = _fit_scratch(pts, sp, sweeps_out)
+    _launch("level", "pw_level_fit",
+            (pts, state, m1, fit_row, tau_row, stats, plan.pos, plan.start,
+             plan.tile_node, plan.tile_off, bitmap, plan.node_off, plan.dest,
+             plan.partial(r), tab, sync[0], sync[1], sweeps_out), b, n, sp,
+            plan.cap, int(trash), int(max_iter), int(fast),
+            int(_blocks_per_scan), fit_level_smem_bytes(sp, fast, True))
+    return stats
+
+
+# ---------------------------------------------------------------------------
 # fit_level  (fit_pallas.py:523-560 fit_level_megakernel -> _mega_kernel):
 # one level's whole fit loop in one launch, for the generic level engine
 # ---------------------------------------------------------------------------
@@ -1013,14 +1147,44 @@ def fit_pack(xyz: torch.Tensor, tau_pt: torch.Tensor, amask: torch.Tensor,
 
 def megakernel_fits(n_padded: int, sp: int) -> bool:
     """The JAX package's VMEM gate (fit_pallas.py:516-520), carried over
-    verbatim: it is the port's path choice, so the port takes the JAX
-    package's path at every N and the two can be held against each other
-    path by path.  In exact mode it changes no result (every path adds in
-    the sweeps' order); fast mode is honoured only by the level path and
-    :func:`fit_level`."""
+    verbatim.  It decides one thing in the port: level path or generic
+    path, so the port takes the JAX package's path at every N and the two
+    can be held against each other path by path.  In exact mode it changes
+    no result (every path adds in the sweeps' order).  Whether a fit runs
+    in one launch is the card's own question, :func:`fit_level_fits`."""
     point_bytes = (8 + 3) * 4 * n_padded          # packed rows + in/out masks
     onehot_bytes = 2 * sp * 4096 * 2              # (Sp, T) bf16, double-ish
     return point_bytes + onehot_bytes + 64 * sp * 4 < 10 * 1024 * 1024
+
+
+def fit_level_smem_bytes(sp: int, fast: bool, level: bool = False) -> int:
+    """Dynamic shared memory of one block of the one-launch fit at table
+    width ``sp``, the one place it is computed: the wrappers hand it to the
+    launch, and ``pw_fit_level_kernel`` (csrc/fitloop.cu) carves it up as
+    the staged rows of a tile, the plane table, the sums of the block's
+    nodes (sized for one block per scan), the runs of a tile and the plan's
+    scratch (``PW_PLAN_SMEM_INTS``, csrc/tile_sums.cuh).  ``level``: of
+    :func:`level_fit`, whose table has a tau row, else of
+    :func:`fit_level`."""
+    r = _sweep_rows(fast)
+    floats = (r * TILE + (8 if level else 7) * sp + sp * r
+              + (0 if fast else sp * 6))
+    return (floats + 2 * TILE + 1 + 3 * TILE + 33) * 4
+
+
+def fit_level_fits(sp: int, fast: bool, device, level: bool = False) -> bool:
+    """The card's gate of the one-launch fit (:func:`fit_level`,
+    :func:`level_fit`): whether a block's shared memory at table width
+    ``sp`` stays inside what the card grants a block (its opt-in limit,
+    read from the card; an H100's 227 KB for a CPU tensor, so the plain
+    path takes the routes the card takes).  Above it a fit runs as
+    :func:`fit_sweep_loop`.  A batch is never refused: it is cut."""
+    device = torch.device(device)
+    limit = _SMEM_OPTIN_H100
+    if device.type == "cuda":
+        limit = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+    return fit_level_smem_bytes(sp, fast, level) <= limit
 
 
 def _fit_sweep_plain(p, g, tab, sp, fast):
@@ -1101,7 +1265,8 @@ def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
     table row.  Sums keep the
     sweeps' order, so the kernel equals its plain version (and the level
     path's fit) bit for bit, whatever the number of blocks.  A launch the
-    card cannot hold resident is refused and raises.  A batch of more
+    card cannot hold resident, or whose shared memory exceeds what the card
+    grants a block (:func:`fit_level_fits`), is refused and raises.  A batch of more
     scans than the card holds blocks (about 660 on an H100) is cut into
     several launches; a scan's result does not depend on its batch.
     """
@@ -1116,7 +1281,7 @@ def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
         raise ValueError("_blocks_per_scan must be >= 0")
     sp = sp_width(num_segs)
     dev = p.device
-    held = _fit_level_held(sp, fast)
+    held = _fit_level_held(sp, fast, False)
     if b > held:
         if sweeps_out is None:
             sweeps_out = torch.empty(b, dtype=torch.int32, device=dev)
@@ -1127,50 +1292,51 @@ def fit_level(p: torch.Tensor, g0: torch.Tensor, num_segs: int,
                 torch.cat([st for _, st in cuts]))
     g = torch.empty_like(g0)
     stats = torch.empty((b, 8, sp), dtype=torch.float32, device=dev)
-    plan, bitmap = _plan_buffers(b, n, sp, dev)
-    tab = torch.empty((b, 7, sp), dtype=torch.float32, device=dev)
-    sync = torch.zeros((3, b), dtype=torch.int32, device=dev)
-    if sweeps_out is None:
-        sweeps_out = sync[2]
-    elif (sweeps_out.shape != (b,) or sweeps_out.dtype != torch.int32
-          or not _on_card(p, sweeps_out)):
-        raise ValueError("sweeps_out must be (B,) int32 on the points' device")
+    plan, bitmap, tab, sync, sweeps_out = _fit_scratch(p, sp, sweeps_out)
     _launch("fit_level", "pw_fit_level",
             (p, g0, g, stats, plan.pos, plan.start, plan.tile_node,
              plan.tile_off, bitmap, plan.node_off, plan.dest,
              plan.partial(_sweep_rows(fast)), tab, sync[0], sync[1],
              sweeps_out), b, n, sp, plan.cap, int(max_iter), int(fast),
-            int(_blocks_per_scan))
+            int(_blocks_per_scan), fit_level_smem_bytes(sp, fast, False))
     return g, stats
 
 
 _FIT_LEVEL_HELD: dict = {}
 
 
-def _fit_level_held(sp: int, fast: bool) -> int:
-    """Blocks of a :func:`fit_level` launch the card holds at a time: the
-    most scans one launch takes."""
-    key = (torch.cuda.current_device(), sp, bool(fast))
+def _fit_level_held(sp: int, fast: bool, level: bool) -> int:
+    """Blocks of a :func:`fit_level` (or, ``level``, :func:`level_fit`)
+    launch the card holds at a time: the most scans one launch takes."""
+    key = (torch.cuda.current_device(), sp, bool(fast), bool(level))
     if key not in _FIT_LEVEL_HELD:
-        from . import _build
-
-        held = _build.load().pw_fit_level_blocks(1, 1 << 30, sp, int(fast))
-        if held <= 0:
-            raise RuntimeError(f"pw_fit_level_blocks: CUDA error {-held}")
-        _FIT_LEVEL_HELD[key] = held
+        _FIT_LEVEL_HELD[key] = _fit_blocks(1, 1 << 30, sp, fast, level)
     return _FIT_LEVEL_HELD[key]
 
 
-def fit_level_blocks(b: int, n: int, num_segs: int, fast: bool = False) -> int:
-    """Blocks per scan of a :func:`fit_level` launch on the current card:
-    its co-resident blocks divided by ``b``, at most one per tile."""
+def _fit_blocks(b: int, n: int, sp: int, fast: bool, level: bool) -> int:
+    """Blocks per scan of an automatic one-launch fit on the current card;
+    raises above the card's gate (:func:`fit_level_fits`)."""
     from . import _build
 
-    blocks = _build.load().pw_fit_level_blocks(b, n, sp_width(num_segs),
-                                               int(fast))
+    if not fit_level_fits(sp, fast, "cuda", level):
+        raise RuntimeError(
+            f"the one-launch fit needs {fit_level_smem_bytes(sp, fast, level)}"
+            f" bytes of shared memory a block at table width {sp}: above "
+            "what the card grants")
+    blocks = _build.load().pw_fit_level_blocks(
+        b, n, int(fast), int(level), fit_level_smem_bytes(sp, fast, level))
     if blocks <= 0:
         raise RuntimeError(f"pw_fit_level_blocks: CUDA error {-blocks}")
     return blocks
+
+
+def fit_level_blocks(b: int, n: int, num_segs: int, fast: bool = False,
+                     level: bool = False) -> int:
+    """Blocks per scan of a :func:`fit_level` (or, ``level``,
+    :func:`level_fit`) launch on the current card: its co-resident blocks
+    divided by ``b``, at most one per tile."""
+    return _fit_blocks(b, n, sp_width(num_segs), fast, level)
 
 
 # The plain versions under the wrappers' names: what the engine calls to
@@ -1184,5 +1350,6 @@ plain = types.SimpleNamespace(
     node_stats=node_stats_plain, early_outs=early_outs_plain,
     deficient_round=deficient_round_plain, seed_init=seed_init_plain,
     plane_table=plane_table_plain, split_decision=split_decision_plain,
-    finish_nodes=finish_nodes_plain, fit_level=fit_level_plain,
+    finish_nodes=finish_nodes_plain, level_fit=level_fit_plain,
+    fit_level=fit_level_plain,
 )

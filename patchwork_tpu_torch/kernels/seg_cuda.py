@@ -19,6 +19,10 @@ segment sum binning and the remap prologue already use.  ``seg_gather`` and
 version agree bit for bit in any order.  As in :mod:`.fit_cuda`, a wrapper
 takes its plain version only for a CPU tensor, and launches its kernel (or
 raises) for a CUDA tensor; launches count into ``fit_cuda.LAUNCHES``.
+
+:func:`run_sum` (csrc/seg.cu) replaces no TPU kernel: it is the in-order
+sum of the voxel-grid filter's runs, which the JAX package leaves to XLA
+and for which PyTorch on the card offers only ``index_add_``'s atomics.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from ..segment.segops import f32_key, flatten_batch, key_f32
 from .fit_cuda import (LAUNCHES, _f32, _gather_rows, _launch, _on_card,
                        seg_sum, seg_sum_plain)
 
-__all__ = ["LAUNCHES", "plain", "seg_sum", "seg_gather", "seg_minmax"]
+__all__ = ["LAUNCHES", "plain", "seg_sum", "seg_gather", "seg_minmax",
+           "run_sum"]
 
 _KEY_POS_INF = 0x7F800000                   # f32_key(+inf)
 _KEY_NEG_INF = -0x7F800001                  # f32_key(-inf)
@@ -126,7 +131,69 @@ def seg_minmax(vals: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
     return mins, maxs
 
 
+# ---------------------------------------------------------------------------
+# run_sum: sums of runs of consecutive rows in row order (no TPU kernel)
+# ---------------------------------------------------------------------------
+
+def run_sum_plain(rows, first, live, run):
+    n, c = rows.shape
+    sums = torch.zeros_like(rows)
+    cnts = rows.new_zeros(n)
+    starts = torch.nonzero(first).flatten()
+    if starts.numel() == 0:
+        return sums, cnts
+    stops = torch.nonzero(first | ~live).flatten()
+    nxt = torch.searchsorted(stops, starts, right=True)
+    end = torch.where(nxt < stops.numel(),
+                      stops[torch.clamp(nxt, max=stops.numel() - 1)],
+                      torch.full_like(starts, n))
+    length = end - starts
+    acc = rows.new_zeros(starts.numel(), c)
+    for t in range(int(length.max())):      # the runs' t-th rows, together
+        m = length > t
+        acc[m] = acc[m] + rows[starts[m] + t]
+    dst = run[starts].to(torch.int64)
+    sums[dst] = acc
+    cnts[dst] = length.to(rows.dtype)
+    return sums, cnts
+
+
+def run_sum(rows: torch.Tensor, first: torch.Tensor, live: torch.Tensor,
+            run: torch.Tensor):
+    """Sums of runs of consecutive rows, each added in row order from +0.0.
+
+    rows (N, C) f32, C <= 4; first (N,) bool marks the row a run starts at
+    (a live one); live (N,) bool: a run goes on while the next row is live
+    and starts no run; run (N,) int32: at a run's first row, the index its
+    sum goes to.  Returns (sums (N, C), counts (N,) f32), zero where no run
+    lands.  The order is fixed, so the card gives the same bits run after
+    run, and the bits of a sequential sum on the CPU.
+
+    CUDA: one thread per row; the thread of a run's first row walks its
+    run.  Bound by the longest run; the rows are read once.
+    """
+    if not _on_card(rows, first, live, run):
+        return run_sum_plain(rows, first, live, run)
+    _f32(rows)
+    n, c = rows.shape
+    if not 1 <= c <= 4:
+        raise ValueError("run_sum takes 1..4 columns")
+    if first.dtype != torch.bool or live.dtype != torch.bool:
+        raise TypeError("first and live must be bool")
+    if run.dtype != torch.int32:
+        raise TypeError("run must be int32")
+    if first.shape != (n,) or live.shape != (n,) or run.shape != (n,):
+        raise ValueError("first, live and run must be (N,)")
+    sums = torch.zeros_like(rows)
+    cnts = rows.new_zeros(n)
+    if n:
+        _launch("run_sum", "pw_run_sum", (rows, first, live, run, sums, cnts),
+                n, c)
+    return sums, cnts
+
+
 # The plain versions under the wrappers' names (SegOps(..., plain=True)).
 plain = types.SimpleNamespace(seg_sum=seg_sum_plain,
                               seg_gather=seg_gather_plain,
-                              seg_minmax=seg_minmax_plain)
+                              seg_minmax=seg_minmax_plain,
+                              run_sum=run_sum_plain)

@@ -9,13 +9,16 @@ Counterpart of ``patchwork_tpu/ops/sampling.py``:
   core that both packages share.
 * :func:`voxel_grid_filter` is the exact voxel centroid filter
   (point_cloud_processor.cpp:150-196): a lexicographic sort on the voxel
-  coordinates, runs, and a segment sum, padded to the input capacity.
+  coordinates, runs, and a sum of each run in point order
+  (:func:`..kernels.seg_cuda.run_sum`), padded to the input capacity.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..kernels import seg_cuda
 
 __all__ = ["random_subsample_mask", "voxel_grid_filter"]
 
@@ -62,6 +65,12 @@ def voxel_grid_filter(xyz: torch.Tensor, valid: torch.Tensor,
     input capacity.  The voxel index is floor(x / s) per axis
     (point_cloud_processor.cpp:161-163), with 1/s rounded to float32 as in
     the JAX reference.
+
+    A voxel's points are added in sorted order, one after the other from
+    +0.0, on either device: on the card by a kernel that walks each run (no
+    float atomics), so two runs give equal bits there.  Those are also the
+    CPU's bits where both sort alike; the sort orders by the voxel of
+    ``xyz * (1 / s)``, a product both devices round the same way.
     """
     n = xyz.shape[0]
     inv = float(np.float32(1.0 / voxel_size))
@@ -76,10 +85,8 @@ def voxel_grid_filter(xyz: torch.Tensor, valid: torch.Tensor,
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=xyz.device),
                        ~same]) & svalid
     run = torch.cumsum(first.to(torch.int64), 0) - 1
-    run = torch.where(svalid, run, torch.full_like(run, n - 1))
-    w = svalid.to(torch.float32)
-    sums = torch.zeros_like(xyz).index_add_(0, run, sxyz * w[:, None])
-    cnts = torch.zeros_like(w).index_add_(0, run, w)
+    sums, cnts = seg_cuda.run_sum(sxyz.contiguous(), first, svalid,
+                                  run.to(torch.int32))
     centroids = sums / torch.clamp(cnts, min=1.0)[:, None]
     out_valid = torch.arange(n, device=xyz.device) < first.sum()
     return (torch.where(out_valid[:, None], centroids,

@@ -10,21 +10,33 @@ JAX package chooses them (engine.py:568-625):
   (kernels/fit_pallas.py:1465-1558): a short sequence of CUDA kernels driven
   from Python on a CUDA tensor, or the same sequence of their plain versions
   (:func:`level_reference`) on a CPU tensor.  ``segment_impl="fused"`` (the
-  default) takes it while the fit gate admits the scan;
+  default) takes it while the path gate admits the scan;
 * the generic path, ``_level_body`` / ``_child_remap`` and the generic
   branch of ``filter_ground`` (engine.py:318-664), built on segment ops
   (segops.SegOps).  ``"scatter"``, ``"onehot"`` and ``"pallas"`` take it,
-  and so does ``"fused"`` above the gate, whose fit then runs as one
-  ``fit_level`` launch or as a loop of the level path's sweeps
-  (``_fused_fit_resid``).
+  and so does ``"fused"`` above the path gate (``_fused_fit_resid``).
+
+Two gates, two questions.  *Level path or generic path* is :func:`_gate`,
+the JAX package's ``megakernel_fits``, so both packages take the same path
+at every N and are held against each other path by path; in exact mode it
+changes no bit.  *One launch or a loop of sweeps, inside a fit* is the
+card's own gate, ``fit_cuda.fit_level_fits``: the shared memory of the
+one-launch kernel at this table width against what the card grants a
+block.  Below it a level's fit loop is one co-operative launch
+(``fit_cuda.level_fit`` on the level path, ``fit_cuda.fit_level`` on the
+generic path, at every N); above it (a table some 2700 nodes wide on an
+H100, reached only through a large ``max_active_nodes_cfg``) the fit is
+``fit_cuda.fit_sweep_loop``, a loop of apply and moments2 sweeps that
+takes any width.  ``megakernel_fits`` has no say in that.
 
 The batch is a real dimension: every kernel's grid carries the scan.  Each
 scan converges on its own: the loops that JAX runs under ``vmap`` share one
 counter and stop when no scan changed, which is correct because a converged
 scan re-fits idempotently (same mask -> same plane -> same mask, bit for
 bit) and a scan with no split passes a deeper level unchanged, so every
-scan gets exactly its solo result.  The host reads one flag per fit
-iteration and one per level.
+scan gets exactly its solo result.  Inside a one-launch fit each scan
+leaves the loop on its own and the host reads nothing; the loop of sweeps
+reads one flag per iteration.  The host reads one flag per level.
 """
 
 from __future__ import annotations
@@ -124,8 +136,8 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
     # ---- phase 4+5: seed init fused with the first sweep; fit loop ------
     # ---- phase 6: final fit, residual, split; 7: finish non-split -------
     m1 = k.seed_init(pts, state, flags, trash, fast)
-    sf = _fit_loop(k, pts, state, m1, flags[:, 2].contiguous(), tau_row,
-                   trash, max_iter, fast)
+    sf = _fit_loop(k, pts, state, m1, flags[:, 2].contiguous(),
+                   tau_row.contiguous(), trash, max_iter, fast)
     sd = k.split_decision(sf, nstats, flags, tables)
     k.finish_nodes(state, flags, sd, trash)
     stats = torch.stack([sd[:, 0], sd[:, 1], sd[:, 2], nstats[:, 0],
@@ -134,37 +146,19 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
     return state, stats
 
 
-def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast,
-              plan=None):
-    """The fit while-loop of a level (fit_pallas.py:1357-1425) on the sweeps
-    of ``k`` (the kernels or their plain versions): from the sums ``m1`` of
-    the seeded mask, plane table then apply sweep until no scan changed or
-    max_iter, then the final can = 0 sweep whose sums give the residual.
-    That sweep runs only on a max_iter exit: after a convergence exit the
-    mask equals the last sweep's input, so its sums are bitwise those of
-    the last sweep.  ``state`` row 0 (the mask) is updated in place; returns
-    the final sums.  Row 3 (the node ids) is fixed for the loop, so one
-    sweep plan (``plan``, built here unless given) serves every sweep, the
-    apply sweeps and the moments2 sweeps alike."""
-    if plan is None:
-        plan = k.sweep_plan(state, fit_row.shape[1])
-
-    def make_tab(m1, with_can):
-        c = (m1[:, 1:4] / torch.clamp(m1[:, 0:1], min=1.0)).contiguous()
-        m2 = None if fast else k.moments2_sweep(pts, state, c, trash, plan)
-        return k.plane_table(m1.contiguous(), c, m2,
-                             fit_row if with_can else None, tau_row, fast)
-
-    changed = True
-    for _ in range(max_iter):
-        m1 = k.apply_sweep(pts, state, make_tab(m1, True), trash, fast, plan)
-        changed = bool((m1[:, 5] > 0.0).any())
-        if not changed:
-            break
-    if changed:
-        m1 = k.apply_sweep(pts, state, make_tab(m1, False), trash, fast,
-                           plan)
-    return m1
+def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
+    """The fit while-loop of a level (fit_pallas.py:1357-1425) from the sums
+    ``m1`` of the seeded mask: one launch (``k.level_fit``) where the card's
+    gate admits the table width, else the loop of sweeps
+    (``fit_cuda.fit_sweep_loop`` on the sweeps of ``k``).  ``state`` row 0
+    (the mask) is updated in place; returns the final sums (B, R, Sp), the
+    same bits either way."""
+    if fit_cuda.fit_level_fits(fit_row.shape[1], fast, pts.device,
+                               level=True):
+        return k.level_fit(pts, state, m1, fit_row, tau_row, trash, max_iter,
+                           fast)
+    return fit_cuda.fit_sweep_loop(k, pts, state, m1, fit_row, tau_row, trash,
+                                   max_iter, fast)
 
 
 def level(pts: torch.Tensor, tables: torch.Tensor, num_segs: int,
@@ -297,8 +291,9 @@ def _shift_to_patch_centers(cfg, xyz, pa):
 # ---------------------------------------------------------------------------
 
 def _gate(n: int, sp: int) -> bool:
-    """``megakernel_fits`` on the point count padded as the JAX package
-    pads it (to 128), so both packages take the same path at every N."""
+    """The path gate, level path or generic path: ``megakernel_fits`` on
+    the point count padded as the JAX package pads it (to 128), so both
+    packages take the same path at every N."""
     return fit_cuda.megakernel_fits(n + (-n) % 128, sp)
 
 
@@ -336,15 +331,16 @@ def _pad_sp(v: torch.Tensor, sp: int) -> torch.Tensor:
 def _fused_fit_resid(cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
                      fit_node, num_segs, plain):
     """The fit loop and final residual of one level under ``"fused"``
-    (engine.py:111-204): one :func:`fit_cuda.fit_level` launch where the gate
-    admits the level, else a loop of the level path's sweeps.
+    (engine.py:111-204): one :func:`fit_cuda.fit_level` launch where the
+    card's gate (``fit_cuda.fit_level_fits``) admits the table width, at
+    every N, else a loop of the level path's sweeps.
 
-    The fallback maps the fit layout onto the level sweeps' rows: points
-    outside the apply-mask park on the trash id (so ``live`` is the
+    The loop of sweeps maps the fit layout onto the level sweeps' rows:
+    points outside the apply-mask park on the trash id (so ``live`` is the
     apply-mask) and the table carries can = fit_node * (gcnt >= 3) and tau
     per node.  The sums of fitted nodes are those of the fit layout; other
-    nodes' sums are not read.  The fallback is exact two-pass in both modes,
-    as in the JAX package; only ``fit_level`` honours fast mode.
+    nodes' sums are not read.  The loop is exact two-pass in both modes, as
+    the JAX package's fallback is; only ``fit_level`` honours fast mode.
 
     Returns (ground (B, N) bool, gcnt (B, S), resid (B, S) with +inf below
     3 ground points).
@@ -361,7 +357,7 @@ def _fused_fit_resid(cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
 
     p = pad(fit_cuda.fit_pack(xyz, tau_pt, amask, seg)).contiguous()
     g0 = pad(ground.to(torch.float32))
-    if _gate(n, sp):
+    if fit_cuda.fit_level_fits(sp, cfg.fast_covariance, xyz.device):
         g, sf = k.fit_level(p, g0[:, None].contiguous(), num_segs,
                             cfg.max_iter, fast=cfg.fast_covariance)
         g = g[:, 0]
@@ -373,10 +369,9 @@ def _fused_fit_resid(cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
         plan = k.sweep_plan(state, sp)
         m1 = k.apply_sweep(p, state, p.new_zeros(b, 8, sp), trash, False,
                            plan)
-        sf = _fit_loop(k, p, state, m1, _pad_sp(fit_node.to(torch.float32),
-                                                sp),
-                       _pad_sp(tau_node, sp), trash, cfg.max_iter, False,
-                       plan)
+        sf = fit_cuda.fit_sweep_loop(
+            k, p, state, m1, _pad_sp(fit_node.to(torch.float32), sp),
+            _pad_sp(tau_node, sp), trash, cfg.max_iter, False, plan)
         g = state[:, 0]
     gcnt = sf[:, 0, :num_segs]
     resid = sf[:, 4, :num_segs] / torch.clamp(gcnt, min=1.0)
@@ -592,8 +587,10 @@ def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
     plain versions on any device (the reference the kernels are held to).
     ``cfg.segment_impl`` picks the engine as in the JAX package
     (engine.py:568-625): ``"fused"`` (the default, :func:`.default_impl`)
-    takes the level path while the fit gate (``fit_cuda.megakernel_fits``)
-    admits the scan and the generic path above it; ``"scatter"``,
+    takes the level path while the path gate (:func:`_gate`, the JAX
+    package's ``megakernel_fits``) admits the scan and the generic path
+    above it; inside either, a fit is one launch wherever the card's gate
+    (``fit_cuda.fit_level_fits``) admits its table width; ``"scatter"``,
     ``"onehot"`` and ``"pallas"`` take the generic path.  Fast mode
     (``fast_covariance``) applies only under ``"fused"``; the others keep
     exact semantics.

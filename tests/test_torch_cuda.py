@@ -163,10 +163,10 @@ def test_slice_matches_plain(dev, scene, mode):
     g_p = filter_ground_batched(xyz, valid, cfg, plain=True).ground
     assert torch.equal(g_k, g_p)
     assert fit_cuda.LAUNCHES == launches, "the plain path launched a kernel"
-    for fam in ("seg_sum", "apply_sweep", "level"):
+    for fam in ("seg_sum", "level"):
         assert launches[fam] > 0, fam
-    if mode == "exact":
-        assert launches["moments2_sweep"] > 0
+    # every fit of the level path is one launch of the level family
+    assert launches["apply_sweep"] == 0 and launches["moments2_sweep"] == 0
     if scene == "split" or mode == "percentile":
         assert launches["seg_order_stat"] > 0
 
@@ -207,9 +207,16 @@ def test_seg_gather_and_minmax_match_plain(dev, b):
 
 
 def _above_gate(n, sp):
-    """The fit gate as if the scan were above the level path's limit:
-    level 0 (Sp 128) takes fit_level, deeper levels the loop of sweeps."""
+    """The path gate as if the scan were above the level path's limit."""
     return sp < 256
+
+
+def _gates_above(monkeypatch):
+    """The generic path, with the card's gate as if only Sp 128 passed:
+    level 0 takes fit_level, deeper levels the loop of sweeps."""
+    monkeypatch.setattr(fit_cuda, "megakernel_fits", _above_gate)
+    monkeypatch.setattr(fit_cuda, "fit_level_fits",
+                        lambda sp, fast, device, level=False: sp < 256)
 
 
 def _scans(scene, n=16384):
@@ -228,7 +235,7 @@ def test_fit_level_matches_plain(dev, monkeypatch, scene, fast):
         seen.append((p.clone(), g0.clone(), args, kw))
         return orig(p, g0, *args, **kw)
 
-    monkeypatch.setattr(fit_cuda, "megakernel_fits", _above_gate)
+    _gates_above(monkeypatch)
     monkeypatch.setattr(fit_cuda, "fit_level", capture)
     xyz = _scans(scene).to(dev)
     filter_ground_batched(xyz, torch.ones(xyz.shape[:2], dtype=torch.bool,
@@ -253,7 +260,7 @@ def test_generic_path_matches_plain(dev, monkeypatch, scene, impl):
         raise AssertionError("the level path ran")
 
     if impl == "fused":
-        monkeypatch.setattr(fit_cuda, "megakernel_fits", _above_gate)
+        _gates_above(monkeypatch)
     monkeypatch.setattr(engine, "level", no_level_path)
     monkeypatch.setattr(engine, "level_reference", no_level_path)
     cfg = PatchworkConfig(segment_impl=impl)
@@ -519,7 +526,7 @@ _NUMPY_ENTRY_POINTS = [
     ("compute_point_to_plane_distance", ([1.0, 2.0, 0.5], [0.0, 0.0, 1.0]),
      1e-6),
     ("random_subsample", (700, 5), "shape"),
-    ("voxel_grid_filter", (2.0,), 1e-5),
+    ("voxel_grid_filter", (2.0,), "bits"),
     ("rotate_points_2d", (37.5,), "bits"),
     ("remove_ego_vehicle", (4.0,), "bits"),
 ]
@@ -586,7 +593,7 @@ def test_fit_level_blocks_batches_and_exits(dev, b, blocks, max_iter, fast):
     p, g0 = _fit_inputs(dev, 3 * b + max_iter, b, 66 * 256, 81, "sorted")
     g_p, s_p = fit_cuda.plain.fit_level(p, g0, 81, max_iter, fast)
     # the card holds 8 x 82 blocks of 100 a scan: still more than tiles
-    blocks = min(blocks, fit_cuda._fit_level_held(128, fast) // b)
+    blocks = min(blocks, fit_cuda._fit_level_held(128, fast, False) // b)
     fit_cuda.reset_launches()
     sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
     for _ in range(2):
@@ -633,7 +640,7 @@ def test_fit_level_uses_the_card_and_refuses_what_it_cannot_hold(dev):
 
 
 def test_fit_level_cuts_a_batch_the_card_cannot_hold(dev):
-    held = fit_cuda._fit_level_held(fit_cuda.sp_width(81), False)
+    held = fit_cuda._fit_level_held(fit_cuda.sp_width(81), False, False)
     b = held + 3
     p, g0 = _fit_inputs(dev, 9, b, 2 * 256, 81, "sorted")
     fit_cuda.reset_launches()
@@ -643,3 +650,283 @@ def test_fit_level_cuts_a_batch_the_card_cannot_hold(dev):
     g_p, s_p = fit_cuda.plain.fit_level(p, g0, 81, 3, False)
     assert torch.equal(g_k, g_p) and _equal(s_k, s_p)
     assert int(sweeps.min()) >= 2
+
+
+# ---------------------------------------------------------------------------
+# the level path's fit loop in one launch
+# ---------------------------------------------------------------------------
+
+def _level_fit_inputs(dev, seed, b, n, s, order, fast, special=False):
+    """A level layout with planar nodes: ground near z = 0 plus clutter,
+    parked points on the trash id (some of them ground from a level
+    before), most nodes fitting, half the live points seeded; with its
+    seeded sums.  ``special``: NaN, +-inf and -0.0 coordinates too."""
+    rng = np.random.default_rng(seed)
+    sp = fit_cuda.sp_width(s)
+    trash = s - 1
+    pts = np.zeros((b, 8, n), np.float32)
+    pts[:, 0:2] = rng.normal(0, 20, (b, 2, n))
+    clutter = rng.random((b, n)) < 0.3
+    pts[:, 2] = np.where(clutter, rng.uniform(0.3, 2.0, (b, n)),
+                         rng.normal(0, 0.03, (b, n)))
+    if special:
+        flat = pts[:, 0:3].reshape(b, -1)
+        for j, v in enumerate((np.nan, np.inf, -np.inf, -0.0)):
+            flat[:, 5 + j::997] = v
+    seg = rng.integers(0, s, (b, n))
+    if order == "sorted":
+        seg = np.sort(seg, axis=1)
+    state = np.zeros((b, 4, n), np.float32)
+    state[:, 0] = rng.random((b, n)) < 0.5
+    state[:, 3] = seg
+    fit_row = np.zeros((b, sp), np.float32)
+    fit_row[:, :trash] = rng.random((b, trash)) < 0.8
+    tau_row = np.zeros((b, sp), np.float32)
+    tau_row[:, :s] = rng.uniform(0.1, 0.15, (b, s))
+    pts, state, fit_row, tau_row = [torch.from_numpy(a).to(dev) for a in
+                                    (pts, state, fit_row, tau_row)]
+    m1 = fit_cuda.plain.apply_sweep(pts, state.clone(),
+                                    pts.new_zeros(b, 8, sp), trash, fast)
+    return pts, state, m1, fit_row, tau_row, trash
+
+
+def _level_fit_both(args, max_iter, fast, blocks=0, sweeps=None):
+    """(sums, state) of the kernel and of its plain version."""
+    pts, state, m1, fit_row, tau_row, trash = args
+    st_k, st_p = state.clone(), state.clone()
+    s_k = fit_cuda.level_fit(pts, st_k, m1, fit_row, tau_row, trash, max_iter,
+                             fast, sweeps_out=sweeps,
+                             _blocks_per_scan=blocks)
+    s_p = fit_cuda.plain.level_fit(pts, st_p, m1, fit_row, tau_row, trash,
+                                   max_iter, fast)
+    return (s_k, st_k), (s_p, st_p)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("max_iter", [0, 2, 30])
+@pytest.mark.parametrize("blocks", [0, 1, 7, 100],
+                         ids=["auto", "one", "ragged", "empty_shares"])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_level_fit_blocks_batches_and_exits(dev, b, blocks, max_iter, fast):
+    # 66 tiles over 7 blocks: shares of 9 and 10 tiles, 81 nodes over 7; of
+    # 100 blocks 34 have no tile and 19 no node
+    args = _level_fit_inputs(dev, 3 * b + max_iter, b, 66 * 256, 81, "sorted",
+                             fast)
+    blocks = min(blocks, fit_cuda._fit_level_held(128, fast, True) // b)
+    fit_cuda.reset_launches()
+    sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        (s_k, st_k), (s_p, st_p) = _level_fit_both(args, max_iter, fast,
+                                                   blocks, sweeps)
+        assert s_k.shape == (b, 12 if fast else 6, 128)
+        assert _equal(st_k, st_p) and _equal(s_k, s_p)    # every column
+    assert fit_cuda.LAUNCHES["level"] == 2
+    assert fit_cuda.LAUNCHES["apply_sweep"] == 0
+    assert fit_cuda.LAUNCHES["moments2_sweep"] == 0
+    k = sweeps.cpu().numpy()
+    assert np.all(k >= 1) and np.all(k <= max_iter + 1)
+    if max_iter <= 2:
+        assert np.all(k == max_iter + 1), "a max_iter exit adds the final fit"
+    if max_iter:
+        assert not torch.equal(st_k[:, 0], args[1][:, 0]), "no refit ran"
+    else:
+        assert torch.equal(st_k[:, 0], args[1][:, 0])
+    if b > 1:       # a scan's result does not depend on its batch
+        one = [a[1:2].contiguous() for a in args[:5]] + [args[5]]
+        (s_1, st_1), _ = _level_fit_both(one, max_iter, fast, blocks)
+        assert _equal(s_1[0], s_k[1]) and _equal(st_1[0], st_k[1])
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("s", [81, 200, 300], ids=["sp128", "sp256", "sp384"])
+def test_level_fit_widths_orders_and_special_values(dev, s, order, fast):
+    for special in (False, True):
+        args = _level_fit_inputs(dev, s, 2, 20 * 256, s, order, fast, special)
+        (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 5, fast)
+        assert _equal(st_k, st_p) and _equal(s_k, s_p)
+        if special:
+            assert torch.isnan(s_p).any() and not torch.isnan(s_p).all()
+
+
+def test_level_fit_one_tile_and_a_scan_that_converges_at_once(dev):
+    args = _level_fit_inputs(dev, 1, 3, 256, 81, "shuffled", False)
+    (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 100, False)
+    assert _equal(st_k, st_p) and _equal(s_k, s_p)
+    # scan 1 restarts from its converged mask: one sweep, the same sums
+    pts, state, m1, fit_row, tau_row, trash = args
+    state = state.clone()
+    state[1, 0] = st_k[1, 0]
+    m1 = fit_cuda.plain.apply_sweep(pts, state.clone(),
+                                    pts.new_zeros(3, 8, 128), trash, False)
+    sweeps = torch.zeros(3, dtype=torch.int32, device=dev)
+    (s_2, st_2), (s_p2, st_p2) = _level_fit_both(
+        (pts, state, m1, fit_row, tau_row, trash), 100, False, 0, sweeps)
+    assert _equal(st_2, st_p2) and _equal(s_2, s_p2)
+    assert int(sweeps[1]) == 1 and int(sweeps[0]) > 1
+    assert _equal(s_2[1, :4], s_k[1, :4])
+
+
+def test_level_fit_gate_refusals_and_cut_batches(dev):
+    assert fit_cuda.fit_level_fits(256, False, dev, level=True)
+    assert fit_cuda.fit_level_fits(2560, True, dev)
+    assert not fit_cuda.fit_level_fits(4224, False, dev, level=True)
+    assert fit_cuda.fit_level_blocks(8, 131072, 81, level=True) > 1
+    # above the gate the launch is refused, and a refused launch is none
+    wide = _level_fit_inputs(dev, 2, 1, 2 * 256, 4200, "shuffled", False)
+    fit_cuda.reset_launches()
+    with pytest.raises(RuntimeError):
+        _level_fit_both(wide, 2, False)
+    assert fit_cuda.LAUNCHES["level"] == 0
+    # the loop of sweeps takes that width
+    pts, state, m1, fit_row, tau_row, trash = wide
+    st_k, st_p = state.clone(), state.clone()
+    a = fit_cuda.fit_sweep_loop(fit_cuda, pts, st_k, m1, fit_row, tau_row,
+                                trash, 2, False)
+    b = fit_cuda.fit_sweep_loop(fit_cuda.plain, pts, st_p, m1, fit_row,
+                                tau_row, trash, 2, False)
+    assert _equal(a, b) and _equal(st_k, st_p)
+    assert 1 <= fit_cuda.LAUNCHES["apply_sweep"] <= 3
+    # a batch above the card's co-resident blocks is cut, not refused
+    held = fit_cuda._fit_level_held(128, False, True)
+    args = _level_fit_inputs(dev, 9, held + 3, 2 * 256, 81, "sorted", False)
+    fit_cuda.reset_launches()
+    sweeps = torch.zeros(held + 3, dtype=torch.int32, device=dev)
+    (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 3, False, 0, sweeps)
+    assert fit_cuda.LAUNCHES["level"] == 2
+    assert _equal(st_k, st_p) and _equal(s_k, s_p)
+    assert int(sweeps.min()) >= 1
+    with pytest.raises(ValueError):
+        _level_fit_both(args[:2] + (args[2][:, :3],) + args[3:], 3, False)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+def test_level_fit_at_the_widest_table_the_gate_admits(dev, fast):
+    # the kernel's shared memory is sized in one place, in Python
+    # (fit_level_smem_bytes); with one block a scan that block owns every
+    # node, the most the kernel's carve-up takes
+    sp = max(w for w in range(128, 8192, 128)
+             if fit_cuda.fit_level_fits(w, fast, dev, level=True))
+    assert sp >= 2560
+    args = _level_fit_inputs(dev, sp, 2, 64 * 256, sp - 3, "shuffled", fast)
+    for blocks in (1, 0):
+        (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 3, fast, blocks)
+        assert _equal(st_k, st_p) and _equal(s_k, s_p)
+    assert not torch.equal(st_k[:, 0], args[1][:, 0]), "no refit ran"
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_level_path_fit_is_one_launch_a_level(dev, mode):
+    # velodyne: no patch splits, one level: 8 launches of the level family
+    # around the fit and one for it, no sweep and no plan of its own
+    xyz = torch.from_numpy(np.stack([velodyne_like_cloud(16384, seed=i)
+                                     for i in range(2)])).to(dev)
+    valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+    fit_cuda.reset_launches()
+    filter_ground_batched(xyz, valid, PatchworkConfig(**MODES[mode]))
+    assert fit_cuda.LAUNCHES["apply_sweep"] == 0
+    assert fit_cuda.LAUNCHES["moments2_sweep"] == 0
+    assert fit_cuda.LAUNCHES["sweep_plan"] == 0
+    # the percentile seeds count the nodes once more
+    assert fit_cuda.LAUNCHES["level"] == 9 + (mode == "percentile")
+
+
+# ---------------------------------------------------------------------------
+# the order statistic, redesigned
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("s", [128, 256, 384])
+def test_order_stat_widths_ranks_and_empty_segments(dev, s, order):
+    rng = np.random.default_rng(s)
+    b, n = 3, 30000
+    vals = rng.normal(0, 50, (b, n)).astype(np.float32)
+    vals[:, ::7] = 0.0
+    vals[:, 1::13] = -0.0
+    vals[:, 2::11] = vals[:, :1]                 # ties
+    vals[:, 3::17] = np.float32(1e-42)           # denormals
+    vals[:, 4::101] = np.float32(3e38)
+    vals[:, 5::103] = np.float32(-3e38)
+    seg = rng.integers(0, s - 20, (b, n))        # 20 segments stay empty
+    seg[0, : n // 2] = 3                         # one large segment
+    if order == "sorted":
+        seg = np.sort(seg, axis=1)
+    seg = seg.astype(np.int32)
+    valid = rng.random((b, n)) > 0.2
+    cnt = np.stack([np.bincount(seg[i][valid[i]], minlength=s)
+                    for i in range(b)])
+    k = np.floor(rng.random((b, s)) * cnt).astype(np.int32)
+    k[:, 0] = 0                                  # the smallest
+    k[:, 1] = np.maximum(cnt[:, 1] - 1, 0)       # the largest
+    k[:, 5] = cnt[:, 5]                          # out of range, above
+    k[:, 6] = -1                                 # and below
+    k[:, 7] = 2 ** 31 - 1
+    args = [torch.from_numpy(a).to(dev) for a in (vals, seg, valid, k)]
+    got = fit_cuda.seg_order_stat(*args, s)
+    ref = fit_cuda.plain.seg_order_stat(*args, s).cpu().numpy()
+    # out of range is garbage by contract, but the same garbage every run:
+    # it is a function of the counts
+    assert _equal(got, fit_cuda.seg_order_stat(*args, s))
+    got = got.cpu().numpy()
+    ok = (k >= 0) & (k < cnt)
+    assert ok.sum() > b * (s - 30)
+    np.testing.assert_array_equal(got[ok].view(np.int32),
+                                  ref[ok].view(np.int32))
+    for i, j in zip(*np.nonzero(ok)):
+        if j < 8:
+            assert got[i, j] == np.sort(
+                vals[i][(seg[i] == j) & valid[i]])[k[i, j]]
+
+
+def test_order_stat_main_path_size_and_nothing_valid(dev):
+    rng = np.random.default_rng(5)
+    b, n, s = 8, 131072, 256
+    vals = torch.from_numpy(rng.normal(0, 30, (b, n)).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(0, 200, (b, n)).astype(np.int32))
+    valid = torch.from_numpy(rng.random((b, n)) > 0.1)
+    valid[2] = False                             # a scan with no candidate
+    cnt = torch.stack([torch.bincount(seg[i][valid[i]].long(), minlength=s)
+                       for i in range(b)])
+    k = (cnt // 2).to(torch.int32)
+    args = [a.to(dev) for a in (vals, seg, valid, k)]
+    got = fit_cuda.seg_order_stat(*args, s)
+    ref = fit_cuda.plain.seg_order_stat(*args, s)
+    ok = (cnt > 0).to(dev)
+    assert _equal(got[ok], ref[ok])
+    with pytest.raises(ValueError):
+        fit_cuda.seg_order_stat(*args, 7000)     # beyond the shared counters
+
+
+# ---------------------------------------------------------------------------
+# the voxel filter's in-order sums
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("voxel", [0.25, 2.0, 30.0])
+def test_voxel_grid_filter_same_bits_run_after_run(dev, voxel):
+    from patchwork_tpu_torch.io.synthetic import demo_point_cloud
+    from patchwork_tpu_torch.kernels import seg_cuda
+    from patchwork_tpu_torch.ops.sampling import voxel_grid_filter
+
+    pts = torch.from_numpy(demo_point_cloud(50000, seed=3))
+    valid = torch.from_numpy(np.random.default_rng(3).random(50000) > 0.1)
+    fit_cuda.reset_launches()
+    runs = [voxel_grid_filter(pts.to(dev), valid.to(dev), voxel)
+            for _ in range(3)]
+    assert fit_cuda.LAUNCHES["run_sum"] == 3
+    for c, v in runs[1:]:
+        assert _equal(c, runs[0][0]) and torch.equal(v, runs[0][1])
+    # and they are the CPU's bits: the same sort, the same order of adds
+    c_cpu, v_cpu = voxel_grid_filter(pts, valid, voxel)
+    assert torch.equal(runs[0][1].cpu(), v_cpu)
+    assert _equal(runs[0][0].cpu(), c_cpu)
+    # the kernel against its plain version on the card
+    n = 20000
+    rng = np.random.default_rng(4)
+    rows = torch.from_numpy(rng.normal(0, 1e3, (n, 3)).astype(np.float32))
+    live = torch.arange(n) < n - 500
+    first = torch.from_numpy(rng.random(n) < 1.0 / (1 + voxel)) & live
+    first[0] = True
+    run = (torch.cumsum(first.long(), 0) - 1).to(torch.int32)
+    a = [t.to(dev) for t in (rows, first, live, run)]
+    for x, y in zip(seg_cuda.run_sum(*a), seg_cuda.plain.run_sum(*a)):
+        assert _equal(x, y)

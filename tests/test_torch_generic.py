@@ -70,6 +70,16 @@ def _gate_below_256(n, sp):
     return sp < 256
 
 
+def _port_gates_below_256(monkeypatch):
+    """The port's two gates as if only Sp 128 passed: the path gate sends
+    the scan to the generic path, the card's gate admits one-launch fits at
+    Sp 128 only, so deeper levels take the loop of sweeps."""
+    monkeypatch.setattr(fit_cuda, "megakernel_fits", _gate_below_256)
+    monkeypatch.setattr(
+        fit_cuda, "fit_level_fits",
+        lambda sp, fast, device, level=False: sp < 256)
+
+
 def _port(pts, kw, **over):
     return filter_ground(torch.from_numpy(pts),
                          torch.ones(len(pts), dtype=torch.bool),
@@ -146,7 +156,7 @@ def test_fused_above_gate(scene, monkeypatch):
     g_o = filter_ground_oracle(pts, JaxConfig(**kw))[0]
     monkeypatch.setattr(jax_fit, "megakernel_fits", _gate_below_256)
     g_jax = _jax(pts, kw, "fused")
-    monkeypatch.setattr(fit_cuda, "megakernel_fits", _gate_below_256)
+    _port_gates_below_256(monkeypatch)
     _no_level_path(monkeypatch)
     calls = {}
     _count(monkeypatch, fit_cuda, "fit_level", calls)
@@ -164,7 +174,7 @@ def test_fused_above_gate(scene, monkeypatch):
 def test_fit_level_plain_vs_megakernel(fast, monkeypatch):
     # a real level-0 input: a demo cloud's binning, seeded mask, tau per patch
     pts = demo_point_cloud(4096, seed=0)
-    monkeypatch.setattr(fit_cuda, "megakernel_fits", _gate_below_256)
+    _port_gates_below_256(monkeypatch)
     seen = []
     orig = fit_cuda.fit_level
 
@@ -191,7 +201,7 @@ def test_batch_equals_solo_runs(impl, monkeypatch):
     # one scan that splits and two that do not: the shared loops re-run
     # finished scans, which must leave them unchanged
     if impl == "fused":
-        monkeypatch.setattr(fit_cuda, "megakernel_fits", _gate_below_256)
+        _port_gates_below_256(monkeypatch)
     cfg = PatchworkConfig(segment_impl=impl)
     scans = [_split_terrain(4096)] + [demo_point_cloud(4096, seed=s)
                                      for s in (1, 2)]

@@ -10,7 +10,6 @@ import torch
 
 from patchwork_tpu_torch.kernels import fit_cuda
 from patchwork_tpu_torch.kernels.fit_cuda import TILE
-from patchwork_tpu_torch.segment import engine
 
 torch.set_num_threads(1)
 
@@ -288,8 +287,8 @@ def test_fit_loop_same_with_and_without_plan(kernels, fast):
     for plan in (None, fit_cuda.sweep_plan(state, sp)):
         st = state.clone()
         m1 = kernels.apply_sweep(pts, st, pts.new_zeros(2, 8, sp), trash, fast)
-        sf = engine._fit_loop(kernels, pts, st, m1, fit_row, tau_row, trash,
-                              4, fast, plan)
+        sf = fit_cuda.fit_sweep_loop(kernels, pts, st, m1, fit_row, tau_row,
+                                     trash, 4, fast, plan)
         outs.append((sf, st))
     for a, b in zip(*outs):
         np.testing.assert_array_equal(_bits(a), _bits(b))

@@ -21,8 +21,19 @@ Sections (all by default; ``--sections gather,sweeps`` runs some):
 ``fits``      ``fit_level`` on the level-0 fit of B=8/3/1 x 153600 128-beam
               scans over a range of blocks per scan, beside the loop of
               sweeps;
+``level_fit`` the level path's fit loop in one launch on the inputs the main
+              path gives it (velodyne level 0, Sp 128, and a split-terrain
+              remap level, Sp 256; B=8 x 131072; exact and fast): held to
+              its plain version at max_iter 2 and run twice, its time by
+              events and on the device over a range of blocks per scan, the
+              sweeps each scan ran, beside the loop of sweeps on the same
+              input and ``seed_init`` (the launch that hands it its sums);
+``order_stat`` ``seg_order_stat`` on the split median (Sp 256) and the
+              percentile seeds (Sp 128) of the main path: by events, host
+              time per call, and the device time and count of each of its
+              kernels per call;
 ``profiles``  one profiled batch per path (device busy time, host span,
-              idle share, top kernels);
+              idle share, top kernels), 262144 points included;
 ``scans``     scans/s of ``filter_ground_batched`` at B=8 (CUDA events, 10
               batches after a warm-up): velodyne at 131072 points, 128-beam
               velodyne at 153600 on the generic path and with the level
@@ -52,7 +63,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
-    ap.add_argument("--sections", default="gather,sweeps,fits,profiles")
+    ap.add_argument("--sections", default="gather,sweeps,fits,level_fit,"
+                    "order_stat,profiles")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
@@ -74,7 +86,7 @@ def main() -> int:
     for m in re.finditer(r"Compiling entry function '(\w+)'[^\n]*\n"
                          r"[^\n]*\n\s*([^\n]*spill[^\n]*)\n"
                          r"ptxas info\s+: (Used [^\n]+)", log):
-        if re.search(r"apply_kernel|pw_plan_|fit_level|pw_m2|gather",
+        if re.search(r"apply_kernel|pw_plan_|fit_level|pw_m2|gather|pw_os_",
                      m.group(1)):
             print(f"[ptxas] {m.group(1)}: {m.group(3)}; {m.group(2)}",
                   flush=True)
@@ -95,13 +107,23 @@ def main() -> int:
         return xyz.to(dev), torch.ones(xyz.shape[:2], dtype=torch.bool,
                                        device=dev)
 
-    def capture(data, cfg, module, name, pick=1):
+    def capture(data, cfg, module, name, pick=1, admits=None):
+        """The arguments of the pick-th call of ``name`` in one batch;
+        ``admits(sp)`` stands in for the card's gate of the one-launch fit
+        (``lambda sp: False``: every fit as a loop of sweeps)."""
+        import contextlib
+
         cap = chip_smoke.Capture(module, [name], {name: pick})
         try:
-            filter_ground_batched(*data, cfg)
+            with (chip_smoke.card_gate(admits) if admits
+                  else contextlib.nullcontext()):
+                filter_ground_batched(*data, cfg)
         finally:
             cap.restore()
         return cap.saved[name]
+
+    def no_one_launch(sp):
+        return False
 
     def shuffled(a, seed):
         """The captured sweep input with its points in random order."""
@@ -255,7 +277,7 @@ def main() -> int:
 
         # the other wrappers' host time per call, on the level path's inputs
         a, _ = capture(batch(velodyne_like_cloud, B, N), PatchworkConfig(),
-                       fit_cuda, "apply_sweep", 5)
+                       fit_cuda, "apply_sweep", 5, no_one_launch)
         pts, state, tab, trash = a[:4]
         st = state.clone()
         plan = fit_cuda.sweep_plan(st, tab.shape[2])
@@ -324,7 +346,8 @@ def main() -> int:
         cfg = PatchworkConfig(fast_covariance=fast)
         mode = "fast" if fast else "exact"
         for scene, data in scenes.items():
-            a, _ = capture(data, cfg, fit_cuda, "apply_sweep", 5)
+            a, _ = capture(data, cfg, fit_cuda, "apply_sweep", 5,
+                           no_one_launch)
             for label, inp in ((scene, a), (scene + " shuffled",
                                             shuffled(a, 2))):
                 plan, per_tile = check_sweep(f"{label} {mode}", inp)
@@ -367,13 +390,9 @@ def main() -> int:
         (p, g0, num_segs, max_iter), kw = capture(gen, cfg, fit_cuda,
                                                   "fit_level")
         (fargs, fkw) = capture(gen, cfg, engine, "_fused_fit_resid")
-        gate = fit_cuda.megakernel_fits
-        fit_cuda.megakernel_fits = lambda n, sp: False
-        try:
+        with chip_smoke.card_gate(no_one_launch):
             loop_ms = chip_smoke._time_ms(engine._fused_fit_resid, fargs, fkw,
                                           3)
-        finally:
-            fit_cuda.megakernel_fits = gate
         for b in (8, 3, 1):
             pb, gb = p[:b].contiguous(), g0[:b].contiguous()
             auto = fit_cuda.fit_level_blocks(b, N_GEN, num_segs, fast)
@@ -393,6 +412,131 @@ def main() -> int:
         print(f"[fit_level] {mode} B={B} N={N_GEN}: the loop of sweeps on the "
               f"same fit {loop_ms:.3f} ms", flush=True)
     out["fit_level_ms"] = fits
+
+    # ---- the level path's fit loop in one launch ----
+    def level_fit_section():
+        rows = {}
+        for fast in (False, True):
+            cfg = PatchworkConfig(fast_covariance=fast)
+            mode = "fast" if fast else "exact"
+            for scene, pick in (("velodyne", 1), ("split", 2)):
+                a, _ = capture(scenes[scene], cfg, fit_cuda, "level_fit", pick)
+                pts, state, m1, fit_row, tau_row, trash, max_iter, _ = a
+                sp = fit_row.shape[1]
+                label = f"{scene} {mode} B={B} N={N} Sp={sp}"
+
+                def run(fn, mi, **kw):
+                    st = state.clone()
+                    return fn(pts, st, m1, fit_row, tau_row, trash, mi, fast,
+                              **kw), st
+
+                got, again = run(fit_cuda.level_fit, 2), run(fit_cuda.level_fit, 2)
+                want = run(fit_cuda.level_fit_plain, 2)
+                loop = run(lambda *x: fit_cuda.fit_sweep_loop(fit_cuda, *x),
+                           max_iter)
+                sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
+                full = run(fit_cuda.level_fit, max_iter, sweeps_out=sweeps)
+                torch.cuda.synchronize()
+                check(all(bits(x, y) for x, y in zip(got, want)),
+                      f"level_fit {label} max_iter 2 vs plain")
+                check(all(bits(x, y) for x, y in zip(got, again)),
+                      f"level_fit {label} twice")
+                check(all(bits(x, y) for x, y in zip(full, loop)),
+                      f"level_fit {label} vs the loop of sweeps")
+                auto = fit_cuda.fit_level_blocks(B, N, sp, fast, level=True)
+                row = {"sweeps_per_scan": sweeps.tolist(), "auto_blocks": auto,
+                       "blocks": {}}
+                for blocks in sorted({auto, 16, 32, 64}):
+                    if blocks > auto:
+                        continue
+                    row["blocks"][blocks] = {
+                        "events_ms": events_ms(lambda: run(
+                            fit_cuda.level_fit, max_iter,
+                            _blocks_per_scan=blocks), 5),
+                        "device_ms": device_us(lambda: run(
+                            fit_cuda.level_fit, max_iter,
+                            _blocks_per_scan=blocks), 5,
+                            "pw_fit_level_kernel") / 1e3}
+                row["loop_of_sweeps_ms"] = events_ms(lambda: run(
+                    lambda *x: fit_cuda.fit_sweep_loop(fit_cuda, *x),
+                    max_iter), 3)
+                # seed_init hands the kernel its first sums: its own launch
+                (sa, _) = capture(scenes[scene], cfg, fit_cuda, "seed_init",
+                                  pick)
+                row["seed_init_device_us"] = device_us(
+                    lambda: fit_cuda.seed_init(sa[0], sa[1].clone(), *sa[2:]),
+                    20, "pw_seed|pw_tile_reduce")
+                rows[label] = row
+                b_auto = row["blocks"][auto]
+                print(f"[level_fit] {label}: one launch "
+                      f"{b_auto['events_ms']:.3f} ms by events, "
+                      f"{b_auto['device_ms']:.3f} ms device with {auto} blocks "
+                      f"a scan; " + ", ".join(
+                          f"{g}: {v['device_ms']:.3f}" for g, v in
+                          sorted(row["blocks"].items()))
+                      + f" ms device by blocks a scan; loop of sweeps "
+                      f"{row['loop_of_sweeps_ms']:.3f} ms; seed_init "
+                      f"{row['seed_init_device_us']:.1f} us device; sweeps "
+                      f"per scan {row['sweeps_per_scan']}", flush=True)
+        out["level_fit"] = rows
+
+    if "level_fit" in sections:
+        level_fit_section()
+
+    # ---- the order statistic ----
+    def order_stat_section():
+        rows = {}
+        cases = {
+            "median, split remap level": (scenes["split"], PatchworkConfig()),
+            "percentile, velodyne level 0": (
+                scenes["velodyne"],
+                PatchworkConfig(adaptive_seed_height=False))}
+        for label, (data, cfg) in cases.items():
+            a, _ = capture(data, cfg, fit_cuda, "seg_order_stat")
+            vals, seg, valid, k, s = a
+            cnt = torch.stack([torch.bincount(seg[i][valid[i]].long(),
+                                              minlength=s)[:s]
+                               for i in range(seg.shape[0])])
+            ok = (k.long() >= 0) & (k.long() < cnt)
+            got = fit_cuda.seg_order_stat(*a)
+            check(bits(got[ok], fit_cuda.seg_order_stat_plain(*a)[ok])
+                  and bits(got, fit_cuda.seg_order_stat(*a)),
+                  f"seg_order_stat {label} vs plain and twice")
+
+            def call():
+                return fit_cuda.seg_order_stat(*a)
+
+            from torch.profiler import ProfilerActivity, profile
+
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    call()
+                torch.cuda.synchronize()
+            kernels = {key: (t / 50, c / 50) for t, c, key in
+                       kernel_rows(prof) if "pw_os_" in key}
+            row = {"sp": s, "events_us": 1e3 * events_ms(call, 200),
+                   "host_us": host_us(call, 500),
+                   "device_us": sum(t for t, _ in kernels.values()),
+                   "kernels_per_call": sum(c for _, c in kernels.values()),
+                   "kernels": kernels,
+                   "bound_us": chip_smoke.kernel_bound(
+                       "seg_order_stat", a, {}, got, None)[0] * 1e3}
+            rows[label] = row
+            print(f"[order_stat] {label} B={vals.shape[0]} N={vals.shape[1]} "
+                  f"Sp={s}: {row['events_us']:.1f} us by events, host "
+                  f"{row['host_us']:.1f} us a call, device "
+                  f"{row['device_us']:.1f} us in {row['kernels_per_call']:.0f} "
+                  f"kernels a call (" + ", ".join(
+                      f"{key.split('(')[0]} {t:.1f}" for key, (t, _) in
+                      sorted(kernels.items())) + f"); bound "
+                  f"{row['bound_us']:.2f} us", flush=True)
+        out["order_stat"] = rows
+
+    if "order_stat" in sections:
+        order_stat_section()
 
     # ---- one profiled batch per path: device busy, span, idle share ----
     def profile_batch(label, fn):
@@ -428,9 +572,16 @@ def main() -> int:
         profile_batch(f"velodyne128 B={B} N={N_GEN} {mode}, level path forced",
                       lambda: chip_smoke.level_path(
                           engine, filter_ground_batched, *gen, cfg))
+    if "profiles" in sections or "scans" in sections:
+        big = batch(velodyne_like_cloud, B, chip_smoke.N_BIG, num_beams=128)
+    if "profiles" in sections:
+        profile_batch(f"velodyne128 B={B} N={chip_smoke.N_BIG} exact",
+                      lambda: filter_ground_batched(*big, PatchworkConfig()))
+        profile_batch(f"split B={B} N={N} exact, level path",
+                      lambda: filter_ground_batched(*scenes["split"],
+                                                    PatchworkConfig()))
     if "scans" in sections:
         rates = {}
-        big = batch(velodyne_like_cloud, B, chip_smoke.N_BIG, num_beams=128)
         for fast in (False, True):
             cfg = PatchworkConfig(fast_covariance=fast)
             mode = "fast" if fast else "exact"
@@ -443,6 +594,8 @@ def main() -> int:
                                       cfg, False, 10)
         rates[f"velodyne128 N={chip_smoke.N_BIG} exact"] = \
             chip_smoke.scans_per_s(*big, PatchworkConfig(), False, 10)
+        rates[f"split N={N} exact"] = chip_smoke.scans_per_s(
+            *scenes["split"], PatchworkConfig(), False, 10)
         for label, rate in rates.items():
             print(f"[scans] {label} B={B}: {rate:.1f} scans/s", flush=True)
         out["scans_per_s"] = rates
