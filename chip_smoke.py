@@ -30,7 +30,11 @@ Phases, one line each:
      loop of sweeps on the same input; the order statistic at Sp 128
      (percentile ranks) and Sp 256 (medians) with its kernels per call, and
      on a skewed input (one node holds two fifths of a scan); the
-     voxel filter's run sums; the device times (torch.profiler) of the
+     voxel filter's run sums; the segment sum on each route (dense, plan +
+     planned, over a binding's plan) and min/max, on binning's sum, level 0's bbox, the generic path's deeper levels
+     (split terrain B=8 x 153600) and the wide table's binding, each twice
+     against its plain version with its time, device time, bound and
+     index_add_'s; the device times (torch.profiler) of the
      moments2 sweep, seg_gather, torch.gather, level_fit and the order
      statistic;
   4. slice: filter_ground_batched on B=8 x 131072 velodyne-like scans and
@@ -47,7 +51,8 @@ Phases, one line each:
      forced on the same scans; then a table too wide for the one-launch fit
      (max_active_nodes_cfg 4096, Sp 4224, split terrain B=2 x 32768):
      fit_level at level 0, the loop of apply and moments2 sweeps deeper,
-     held to the plain path; every kernel family was launched;
+     held to the plain path; every kernel family was launched; the level
+     path builds no segment plan, a generic batch at most one a bound sum;
   5. quality: the five hard labeled scenes at 65536 points (seeds 0, 1),
      IoU within 0.001 of EVAL_r05.json in both modes;
   6. timing: scans/s of the kernel path (CUDA events) beside the plain
@@ -591,6 +596,75 @@ def run_sum_check(dev, fails) -> None:
     fails.check(vs_plain, "run_sum differs from its plain version")
 
 
+def seg_op_checks(dev, fails, sums, minmaxes) -> dict:
+    """Phase 3's checks of #6 seg_sum and #8 seg_minmax on the main path's
+    inputs (label -> arguments; binning's sum, the generic path's deeper
+    levels, the wide table's binding): every route against its plain
+    version, twice, every bit; each one's time by events and on the
+    device, with the bound and, for the sum, index_add_.  #6: a call with
+    no plan (the dense route), a plan built for the call and the planned
+    sum, and a sum over a binding's plan (built once); #8: its one route.
+    Returns the JSON keys of the two families' entries."""
+    import torch
+    from patchwork_tpu_torch.kernels import fit_cuda, seg_cuda
+
+    nan = float("nan")
+    entry = {"seg_sum": {}, "seg_minmax": {}}
+    for label, (rows, seg, s) in sums.items():
+        want = fit_cuda.seg_sum_plain(rows, seg, s)
+        plan = fit_cuda.seg_plan(seg, s)
+        routes = {
+            "dense": lambda: fit_cuda.seg_sum(rows, seg, s),
+            "plan + planned": lambda: fit_cuda.seg_sum(
+                rows, seg, s, plan=fit_cuda.seg_plan(seg, s)),
+            "over a binding's plan": lambda: fit_cuda.seg_sum(rows, seg, s,
+                                                              plan=plan)}
+        row = {}
+        for route, fn in routes.items():
+            ok = _same_bits(fn(), want) and _same_bits(fn(), want)
+            fails.check(ok, f"seg_sum {label}, {route}: differs from its "
+                            "plain version or between two runs")
+            row[route] = {"ms": _time_ms(fn, (), {}, 20),
+                          "device_ms": _device_ms(fn, 20, "pw_") or nan,
+                          "ok": ok}
+        row["plan_device_ms"] = _device_ms(lambda: fit_cuda.seg_plan(seg, s),
+                                           20, "pw_plan") or nan
+        row["library_ms"] = library_ms("seg_sum", (rows, seg, s))
+        row["bound_ms"] = kernel_bound("seg_sum", (rows, seg, s), {}, want,
+                                       None)[0]
+        entry["seg_sum"][label] = row
+        print(f"[3 seg ops] seg_sum {label} B={rows.shape[0]} R={rows.shape[1]}"
+              f" N={rows.shape[2]} S={s}: " + "; ".join(
+                  f"{r} {v['ms']:.4f} ms (device {v['device_ms']:.4f}) "
+                  f"{'ok' if v['ok'] else 'MISMATCH'}"
+                  for r, v in row.items() if isinstance(v, dict))
+              + f"; plan device {row['plan_device_ms']:.4f} ms; index_add_ "
+              f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms",
+              flush=True)
+    for label, (vals, seg, mask, s) in minmaxes.items():
+        want = seg_cuda.seg_minmax_plain(vals, seg, mask, s)
+        routes = {"one launch": lambda: seg_cuda.seg_minmax(vals, seg, mask,
+                                                             s)}
+        row = {}
+        for route, fn in routes.items():
+            ok = _same_bits(fn(), want) and _same_bits(fn(), want)
+            fails.check(ok, f"seg_minmax {label}, {route}: differs from its "
+                            "plain version or between two runs")
+            row[route] = {"ms": _time_ms(fn, (), {}, 20),
+                          "device_ms": _device_ms(fn, 20, "pw_") or nan,
+                          "ok": ok}
+        row["bound_ms"] = kernel_bound("seg_minmax", (vals, seg, mask, s), {},
+                                       want, None)[0]
+        entry["seg_minmax"][label] = row
+        print(f"[3 seg ops] seg_minmax {label} B={vals.shape[0]} "
+              f"C={vals.shape[1]} N={vals.shape[2]} S={s}: " + "; ".join(
+                  f"{r} {v['ms']:.4f} ms (device {v['device_ms']:.4f}) "
+                  f"{'ok' if v['ok'] else 'MISMATCH'}"
+                  for r, v in row.items() if isinstance(v, dict))
+              + f"; bound {row['bound_ms']:.4f} ms", flush=True)
+    return entry
+
+
 class Capture:
     """Keep the arguments of chosen calls of module functions (cloned
     before the call, which may update its inputs in place)."""
@@ -615,6 +689,27 @@ class Capture:
     def restore(self):
         for name, fn in self.orig.items():
             setattr(self.module, name, fn)
+
+
+def first_calls(run, module, name, label_of) -> dict:
+    """The arguments of the first call of ``module.name`` under each label
+    that ``label_of(args)`` gives it (None: not kept) while ``run()``
+    runs, cloned before the call."""
+    saved = {}
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        label = label_of(args)
+        if label and label not in saved:
+            saved[label] = _clone(args)
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return saved
 
 
 def min_iou(a, b) -> float:
@@ -1219,6 +1314,24 @@ def main() -> int:
         "split terrain, generic fit": captured[(
             "apply_sweep/fit gate shut", "exact")][2]}
 
+    # #6 and #8 beyond binning's sum and level 0's bbox: the generic path's
+    # deeper levels (split terrain B x N_GEN, 161 segments) and the wide
+    # table's binding (4097 segments), first call of each shape
+    seg_sums = {"binning": captured[("seg_sum", "exact")][2]}
+    seg_minmaxes = {"velodyne level 0, pallas":
+                    captured[("seg_minmax", "exact")][2]}
+    for label, data, cfg in (("generic deeper", split_gen, cfg_exact),
+                             ("wide table", wide, cfg_wide)):
+        def run():
+            filter_ground_batched(*data, cfg)
+
+        for k, a in first_calls(run, seg_cuda, "seg_sum", lambda a: (
+                f"R={a[0].shape[1]}" if a[2] > 81 else None)).items():
+            seg_sums[f"{label} {k}"] = a
+        for k, a in first_calls(run, seg_cuda, "seg_minmax", lambda a: (
+                f"C={a[0].shape[1]}" if a[3] > 81 else None)).items():
+            seg_minmaxes[f"{label} {k}"] = a
+
     exact_only = {"seg_order_stat", "remap_nodes", "remap_points",
                   "node_stats", "early_outs", "deficient_round",
                   "finish_nodes", "seg_gather", "seg_minmax"}
@@ -1309,6 +1422,8 @@ def main() -> int:
     extra["level"] = level_fit_checks(dev, fails, level_fit_inputs)
     extra["seg_order_stat"] = order_stat_checks(dev, fails, order_stat_inputs)
     run_sum_check(dev, fails)
+    stamp("3 seg ops")
+    seg_entry = seg_op_checks(dev, fails, seg_sums, seg_minmaxes)
 
     # device times of the moments2 sweep and seg_gather, and of the
     # library call beside seg_gather (events read max(host, device) a call)
@@ -1328,6 +1443,8 @@ def main() -> int:
                                 "pw_gather"),
         "library_device_ms": _device_ms(lambda: torch.gather(table, 2, idx),
                                         100, r"^(?!.*pw_).*gather")}
+    extra["seg_sum"] = {"routes": seg_entry["seg_sum"]}
+    extra["seg_minmax"] = {"routes": seg_entry["seg_minmax"]}
     print(f"[3 device] apply_sweep {extra['apply_sweep']}; moments2_sweep "
           f"{extra['moments2_sweep']}; seg_gather "
           f"{extra['seg_gather']} (ms of device time, torch.profiler)",
@@ -1366,6 +1483,10 @@ def main() -> int:
             fails.check(d["apply_sweep"] == 0 and d["moments2_sweep"] == 0
                         and d["sweep_plan"] == 0 and d["level"] > 0,
                         f"{scene} {mode}: the level path launched sweeps {d}")
+            # binning's one sum has no binding: no segment plan either
+            fails.check(d["seg_plan"] == 0 and d["seg_sum"] == 1,
+                        f"{scene} {mode}: the level path built a segment plan"
+                        f" or summed more than once {d}")
             if scene == "velodyne":
                 fails.check(d["level"] == 9, f"velodyne {mode}: {d['level']} "
                             "launches of the level family, not 9")
@@ -1404,6 +1525,12 @@ def main() -> int:
             gen[(scene, mode)], d = counted(data, cfg)
             print(f"[4 generic] {scene} {mode} B={B} N={N_GEN}: launches of "
                   f"one batch", {k: v for k, v in d.items() if v}, flush=True)
+            # a binding builds one plan, at its first sum, and adds over it
+            print(f"[4 generic] {scene} {mode}: {d['seg_plan']} segment plans"
+                  f" for {d['seg_sum'] - 1} bound sums (binning's has none)",
+                  flush=True)
+            fails.check(0 < d["seg_plan"] <= d["seg_sum"] - 1,
+                        f"{scene} {mode} N={N_GEN}: segment plans {d}")
             fails.check(d["level path"] == 0 and d["fit_level"] > 0
                         and d["apply_sweep"] == 0,
                         f"{scene} {mode} N={N_GEN}: not the generic path "
@@ -1600,11 +1727,12 @@ def main() -> int:
         ("moments2_sweep", "sweeps.cu",
          "patchwork_tpu/kernels/fit_pallas.py:220"),
         ("level", "level.cu", "patchwork_tpu/kernels/fit_pallas.py:1465"),
-        ("seg_sum", "sweeps.cu", "patchwork_tpu/kernels/seg_pallas.py:74"),
+        ("seg_sum", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:74"),
         ("fit_level", "fitloop.cu", "patchwork_tpu/kernels/fit_pallas.py:525"),
         ("seg_gather", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:112"),
         ("seg_minmax", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:165"),
     ]
+    extra["seg_sum"]["plan_launches"] = launches["seg_plan"]
     stamp("results")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,

@@ -1,4 +1,4 @@
-// Fit-loop sweeps, the sweep plan and the fixed-order segment sum.
+// Fit-loop sweeps and the tile plans they and the segment ops add over.
 //
 // Replace (patchwork_tpu/kernels/):
 //   pw_apply_sweep    fit_pallas.py fused_apply -> _apply_kernel (93-136,
@@ -6,7 +6,9 @@
 //   pw_moments2_sweep fit_pallas.py fused_moments2 -> _moments2_kernel
 //                     (138-172, 219-244), as the level kernel's `m2_sweep`
 //                     (1338-1355)
-//   pw_seg_sum        seg_pallas.py seg_sum_pallas -> _seg_sum_kernel (52-93)
+// and build the plans of tile_sums.cuh: pw_sweep_plan of a level's node ids
+// (a row of the sweeps' state), pw_seg_plan of a segment binding's int ids
+// (the segment sum and min/max of seg.cu add over it).
 //
 // On the TPU each tile's per-node sums are one-hot matmuls on the MXU over
 // a VMEM-resident cloud.  Here one block takes one tile of PW_TILE points of
@@ -32,10 +34,8 @@
 // pw_moments2_sweep is the same one launch over the same plan, with the same
 // tail (pw_tile_finish, tile_sums.cuh): 20 bytes read per point, six rows.
 //
-// pw_seg_sum keeps the dense scheme (its ids change from call to call, so
-// it has no plan to reuse): the thread of node s walks the tile's points
-// (pw_tile_accumulate) and a second kernel adds the (tiles, R, Sp) partials
-// in tile order (pw_reduce_tiles), as do the sums of level.cu.
+// pw_reduce_tiles adds dense (tiles, R, Sp) partials in tile order for the
+// sums of level.cu, which still walk a tile per node (pw_tile_accumulate).
 #include "common.cuh"
 #include "tile_sums.cuh"
 
@@ -58,23 +58,6 @@ void pw_reduce_tiles(const float* partial, float* out, int B, int nt, int R,
   int total = B * R * sp;
   pw_tile_reduce_kernel<<<(total + 127) / 128, 128, 0, stream>>>(
       partial, out, B, nt, R, sp);
-}
-
-template <int R>
-__global__ void pw_seg_sum_partials(const float* __restrict__ rows,
-                                    const int* __restrict__ seg,
-                                    float* __restrict__ partial, int N,
-                                    int sp) {
-  __shared__ float vals[R][PW_TILE];
-  __shared__ int segs[PW_TILE];
-  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
-  size_t i = (size_t)tile * PW_TILE + t;
-#pragma unroll
-  for (int r = 0; r < R; ++r) vals[r][t] = rows[((size_t)b * R + r) * N + i];
-  segs[t] = seg[(size_t)b * N + i];
-  __syncthreads();
-  pw_tile_accumulate<R>(vals, segs, sp,
-                        partial + ((size_t)b * nt + tile) * R * sp);
 }
 
 // One tile of one scan per block.  partial (B, cap, R): the partial at
@@ -138,13 +121,18 @@ __global__ void __launch_bounds__(PW_TILE)
                     &nfull);
 }
 
+// table: the dynamic shared memory holds an int per node id (sp of them)
+// for pw_tile_slots_table.
+template <typename Id>
 __global__ void __launch_bounds__(PW_TILE)
-    pw_plan_tiles_kernel(const float* __restrict__ rows, int nrows, int row,
-                         PwPlan plan, int N, int sp, int cap) {
+    pw_plan_tiles_kernel(const Id* __restrict__ rows, int nrows, int row,
+                         PwPlan plan, int N, int sp, int cap, bool table) {
   __shared__ int iw[PW_PLAN_SMEM_INTS];
+  extern __shared__ int ids[];
   int b = blockIdx.y;
   pw_plan_tile(rows + ((size_t)b * nrows + row) * N, blockIdx.x, N / PW_TILE,
-               pw_plan_scan_of(plan, b, N, sp, cap), iw);
+               pw_plan_scan_of(plan, b, N, sp, cap), iw,
+               table ? ids : nullptr);
 }
 
 __global__ void __launch_bounds__(PW_TILE)
@@ -205,42 +193,43 @@ __global__ void __launch_bounds__(PW_TILE)
                     done + (size_t)b * sp, sp, full, &nfull);
 }
 
-PW_EXPORT int pw_seg_sum(const float* rows, const int* seg, float* partial,
-                         float* out, int B, int R, int N, int S,
-                         void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// The three steps of a plan of node-id row `row` of rows (B, nrows, N);
+// bitmap (2, B, sp, W) is scratch whose first half is zeroed by the caller
+// (the second holds the words' prefix counts), start, tile_node and dest
+// are zeroed too where their unused tails are compared.
+template <typename Id>
+static int pw_plan_launch(const Id* rows, PwPlan plan, int nrows, int row,
+                          int B, int N, int sp, int cap, cudaStream_t st) {
   dim3 grid(N / PW_TILE, B);
-  switch (R) {
-    case 1: pw_seg_sum_partials<1><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    case 2: pw_seg_sum_partials<2><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    case 3: pw_seg_sum_partials<3><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    case 4: pw_seg_sum_partials<4><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    case 5: pw_seg_sum_partials<5><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    case 6: pw_seg_sum_partials<6><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    case 7: pw_seg_sum_partials<7><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    case 8: pw_seg_sum_partials<8><<<grid, PW_TILE, 0, st>>>(rows, seg, partial, N, S); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  pw_reduce_tiles(partial, out, B, N / PW_TILE, R, S, st);
+  plan.wpre = (int*)(plan.bitmap + (size_t)B * sp * ((N / PW_TILE + 31) / 32));
+  bool table = sp <= PW_SLOT_TABLE_MAX;
+  pw_plan_tiles_kernel<Id><<<grid, PW_TILE, table ? sp * sizeof(int) : 0,
+                             st>>>(rows, nrows, row, plan, N, sp, cap, table);
+  pw_plan_offsets_kernel<<<B, PW_TILE, 0, st>>>(plan, N, sp, cap);
+  pw_plan_places_kernel<<<grid, PW_TILE, 0, st>>>(plan, N, sp, cap);
   return (int)cudaGetLastError();
 }
 
-// The plan of node-id row `row` of rows (B, nrows, N); bitmap is zeroed by
-// the caller, start, tile_node and dest too where their unused tails are
-// compared.
+// The plan of a fit: node ids in row `row` of the float state.
 PW_EXPORT int pw_sweep_plan(const float* rows, unsigned char* pos,
                             unsigned char* start, int* tile_node,
                             int* tile_off, unsigned* bitmap, int* node_off,
                             int* dest, int nrows, int row, int B, int N,
                             int sp, int cap, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   PwPlan plan = {pos, start, tile_node, tile_off, bitmap, node_off, dest};
-  dim3 grid(N / PW_TILE, B);
-  pw_plan_tiles_kernel<<<grid, PW_TILE, 0, st>>>(rows, nrows, row, plan, N, sp,
-                                                 cap);
-  pw_plan_offsets_kernel<<<B, PW_TILE, 0, st>>>(plan, N, sp, cap);
-  pw_plan_places_kernel<<<grid, PW_TILE, 0, st>>>(plan, N, sp, cap);
-  return (int)cudaGetLastError();
+  return pw_plan_launch(rows, plan, nrows, row, B, N, sp, cap,
+                        (cudaStream_t)stream);
+}
+
+// The plan of a segment binding: seg (B, N) int ids in [0, S), N a multiple
+// of PW_TILE.  Bound by reading the ids once and by the tile step's
+// in-block ranks; built once per binding and shared by its calls.
+PW_EXPORT int pw_seg_plan(const int* seg, unsigned char* pos,
+                          unsigned char* start, int* tile_node, int* tile_off,
+                          unsigned* bitmap, int* node_off, int* dest, int B,
+                          int N, int S, int cap, void* stream) {
+  PwPlan plan = {pos, start, tile_node, tile_off, bitmap, node_off, dest};
+  return pw_plan_launch(seg, plan, 1, 0, B, N, S, cap, (cudaStream_t)stream);
 }
 
 PW_EXPORT int pw_apply_sweep(const float* pts, float* state, const float* tab,

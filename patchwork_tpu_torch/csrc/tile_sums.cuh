@@ -1,13 +1,15 @@
-// Sweep plan and compact tile sums, shared by the apply sweep and the
-// moments2 sweep (sweeps.cu) and the one-launch fit loop (fitloop.cu).
+// Tile plan and compact tile sums, shared by the apply sweep and the
+// moments2 sweep (sweeps.cu), the one-launch fit loop (fitloop.cu) and the
+// segment sums of a segment binding (seg.cu).
 //
 // The order of every per-node sum is fixed (common.cuh): inside a tile the
 // points of node s are added in point order from +0.0, then the tiles'
 // partials in tile order from +0.0.  A tile that holds no point of s adds
 // +0.0, which changes no bit of a chain that starts at +0.0 (the chain never
 // holds -0.0), so a node's chain may skip every tile without it.  The node
-// ids are fixed for a whole fit, so which nodes occur in which tile is found
-// once, as a plan, and every sweep of the fit reuses it:
+// ids are fixed for a whole fit (or a segment binding), so which nodes occur
+// in which tile is found once, as a plan, and every sweep of the fit (every
+// sum of the binding) reuses it:
 //
 //   pos      (B, N)     u8   a point's place in its tile once the tile is
 //                            stably sorted by the first occurrence of its
@@ -25,8 +27,10 @@
 // `tile` of node s is set where the tile holds s.  An entry's place among
 // its node's is the count of set bits below the tile's, so the places come
 // out in tile order without a sort and without an atomic that hands them
-// out.  Integer atomics (OR, ADD on counts) give the same result in any
-// order.
+// out.  Where wpre (B, sp, W) is given, step 2 stores each word's count of
+// set bits before it, so step 3 reads one count instead of counting a row
+// (which, for a node in every tile, is most of the step's L2 traffic).
+// Integer atomics (OR, ADD on counts) give the same result in any order.
 //
 // A sweep then stages each point's rows at vals[pos][r], one thread per
 // (slot, row) adds its run in order and writes one float of the tile's K x R
@@ -45,6 +49,7 @@ struct PwPlan {
   unsigned* bitmap;
   int* node_off;
   int* dest;
+  int* wpre;    // null, or build scratch (B, sp, W): set bits before a word
 };
 
 // Shared-memory ints the plan's device functions need.
@@ -59,6 +64,7 @@ __device__ __forceinline__ PwPlan pw_plan_scan_of(PwPlan p, int b, int N,
   p.tile_node += (size_t)b * N;
   p.tile_off += (size_t)b * (nt + 1);
   p.bitmap += (size_t)b * sp * W;
+  if (p.wpre) p.wpre += (size_t)b * sp * W;
   p.node_off += (size_t)b * (sp + 1);
   p.dest += (size_t)b * cap;
   return p;
@@ -98,47 +104,115 @@ __device__ __forceinline__ int pw_block_scan(int v, int* ws, int* total) {
   return res;
 }
 
-// Plan, step 1 of 3, one tile: slots in order of first occurrence, each
-// point's place, the runs' starts, the slot count (left in tile_off[tile+1]
-// for step 2) and the nodes' tile bits.  segrow: the scan's node ids as
-// floats.  iw: PW_PLAN_SMEM_INTS shared ints.
-__device__ __forceinline__ void pw_plan_tile(const float* segrow, int tile,
-                                             int nt, PwPlan pl, int* iw) {
+// One tile's slots in shared memory: thread t holds the node id s of the
+// tile's point t.  Slots follow first occurrence; the point's place in the
+// tile stably sorted by slot is slot's run start plus its rank (earlier
+// points of its node).  Leaves the runs' starts in iw[PW_TILE + k], k < K.
+// iw: PW_PLAN_SMEM_INTS shared ints.  Ends with a barrier.
+struct PwSlots {
+  int pos;    // the point's place
+  int slot;   // its node's slot
+  int rank;   // earlier points of its node in the tile
+  int K;      // the tile's slot count
+  int st;     // for t < K: where slot t's run starts
+};
+
+__device__ __forceinline__ PwSlots pw_tile_slots(int s, int* iw) {
   int* segs = iw;
   int* slots = iw + PW_TILE;
   int* cnt = iw + 2 * PW_TILE;
   int* ws = iw + 3 * PW_TILE;
-  int t = threadIdx.x, W = (nt + 31) / 32;
-  size_t i = (size_t)tile * PW_TILE + t;
-  int s = (int)segrow[i];
+  int t = threadIdx.x;
   segs[t] = s;
   cnt[t] = 0;
   __syncthreads();
-  int rank = 0, first = t;
+  PwSlots q;
+  int first = t;
+  q.rank = 0;
   for (int u = 0; u < t; ++u) {
     if (segs[u] == s) {
-      if (rank == 0) first = u;
-      ++rank;
+      if (q.rank == 0) first = u;
+      ++q.rank;
     }
   }
-  int K;
-  int slot = pw_block_scan(rank == 0 ? 1 : 0, ws, &K);
-  if (rank == 0) slots[t] = slot;
+  q.slot = pw_block_scan(q.rank == 0 ? 1 : 0, ws, &q.K);
+  if (q.rank == 0) slots[t] = q.slot;
   __syncthreads();
-  slot = slots[first];
-  atomicAdd(&cnt[slot], 1);
+  q.slot = slots[first];
+  atomicAdd(&cnt[q.slot], 1);
   __syncthreads();
   int total;
-  int st = pw_block_scan(t < K ? cnt[t] : 0, ws, &total);
-  slots[t] = st;            // every thread read slots[first] two barriers ago
+  q.st = pw_block_scan(t < q.K ? cnt[t] : 0, ws, &total);
+  slots[t] = q.st;          // every thread read slots[first] two barriers ago
   __syncthreads();
-  pl.pos[i] = (unsigned char)(slots[slot] + rank);
-  if (t < K) pl.start[i] = (unsigned char)st;
-  if (rank == 0) {
-    pl.tile_node[(size_t)tile * PW_TILE + slot] = s;
+  q.pos = slots[q.slot] + q.rank;
+  return q;
+}
+
+// Ids below which pw_tile_slots_table's table (4 bytes an id) is used.
+#define PW_SLOT_TABLE_MAX 8192
+
+// pw_tile_slots with a shared table of one int per id (ids < its length) in
+// place of the walk over earlier points, which costs a thread up to 255
+// shared reads: the warps take turns, the lanes of a warp that hold one
+// node rank among themselves by one match, and the node's count so far
+// comes from the table.  The same places, slots and runs.
+__device__ __forceinline__ PwSlots pw_tile_slots_table(int s, int* iw,
+                                                       int* table) {
+  int* slots = iw + PW_TILE;
+  int* cnt = iw + 2 * PW_TILE;
+  int* ws = iw + 3 * PW_TILE;
+  int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  table[s] = 0;
+  __syncthreads();
+  unsigned peers = __match_any_sync(0xffffffffu, s);
+  int below = __popc(peers & ((1u << lane) - 1u));
+  PwSlots q;
+  for (int w = 0; w < PW_TILE / 32; ++w) {
+    if (warp == w) {
+      q.rank = table[s] + below;
+      __syncwarp();
+      if (below == 0) table[s] = q.rank + __popc(peers);
+    }
+    __syncthreads();
+  }
+  int total = table[s];          // the node's points in the tile
+  q.slot = pw_block_scan(q.rank == 0 ? 1 : 0, ws, &q.K);
+  if (q.rank == 0) {
+    table[s] = q.slot;
+    cnt[q.slot] = total;
+  }
+  __syncthreads();
+  q.slot = table[s];
+  int all;
+  q.st = pw_block_scan(t < q.K ? cnt[t] : 0, ws, &all);
+  slots[t] = q.st;
+  __syncthreads();
+  q.pos = slots[q.slot] + q.rank;
+  return q;
+}
+
+// Plan, step 1 of 3, one tile: slots in order of first occurrence, each
+// point's place, the runs' starts, the slot count (left in tile_off[tile+1]
+// for step 2) and the nodes' tile bits.  segrow: the scan's node ids, as
+// floats (a row of the sweeps' state) or as ints (a segment binding).
+// iw: PW_PLAN_SMEM_INTS shared ints; table: null, or a shared int per id
+// (pw_tile_slots_table).
+template <typename Id>
+__device__ __forceinline__ void pw_plan_tile(const Id* segrow, int tile,
+                                             int nt, PwPlan pl, int* iw,
+                                             int* table = nullptr) {
+  int t = threadIdx.x, W = (nt + 31) / 32;
+  size_t i = (size_t)tile * PW_TILE + t;
+  int s = (int)segrow[i];
+  PwSlots q = table ? pw_tile_slots_table(s, iw, table) : pw_tile_slots(s, iw);
+  pl.pos[i] = (unsigned char)q.pos;
+  if (t < q.K) pl.start[i] = (unsigned char)q.st;
+  if (q.rank == 0) {
+    pl.tile_node[(size_t)tile * PW_TILE + q.slot] = s;
     atomicOr(&pl.bitmap[(size_t)s * W + (tile >> 5)], 1u << (tile & 31));
   }
-  if (t == 0) pl.tile_off[tile + 1] = K;
+  if (t == 0) pl.tile_off[tile + 1] = q.K;
   __syncthreads();
 }
 
@@ -158,8 +232,10 @@ __device__ __forceinline__ void pw_plan_offsets(int nt, int sp, PwPlan pl,
   for (int base = 0; base < sp; base += PW_TILE) {
     int s = base + t, v = 0;
     if (s < sp)
-      for (int w = 0; w < W; ++w)
+      for (int w = 0; w < W; ++w) {
+        if (pl.wpre) pl.wpre[(size_t)s * W + w] = v;
         v += __popc(__ldcg(pl.bitmap + (size_t)s * W + w));
+      }
     int ex = pw_block_scan(v, ws, &total);
     if (s < sp) pl.node_off[s + 1] = carry + ex + v;
     carry += total;
@@ -181,7 +257,11 @@ __device__ __forceinline__ void pw_plan_places(int tile, int nt,
     int s = __ldcg(pl.tile_node + (size_t)tile * PW_TILE + t);
     const unsigned* bits = pl.bitmap + (size_t)s * W;
     int place = 0;
-    for (int w = 0; w < (tile >> 5); ++w) place += __popc(__ldcg(bits + w));
+    if (pl.wpre) {
+      place = __ldcg(pl.wpre + (size_t)s * W + (tile >> 5));
+    } else {
+      for (int w = 0; w < (tile >> 5); ++w) place += __popc(__ldcg(bits + w));
+    }
     place += __popc(__ldcg(bits + (tile >> 5)) & ((1u << (tile & 31)) - 1u));
     pl.dest[off + t] = __ldcg(pl.node_off + s) + place;
   }
@@ -238,46 +318,45 @@ __device__ __forceinline__ void pw_tile_compact_sums(float* vals,
 
 // One (node, row) chain: the node's partials [lo, hi) of part (entries, R),
 // added in tile order from +0.0.  They come from other blocks of the same
-// launch, so they are read through the L2; the loads go out sixteen at a
-// time, the adds stay in order.
+// launch, so they are read through the L2; the loads go out L at a time
+// (sixteen unless the caller can spare the registers for more), the adds
+// stay in order.
+template <int L = 16>
 __device__ __forceinline__ float pw_chain(const float* part, int lo, int hi,
                                           int R, int r) {
   float acc = 0.f;
   const float* p = part + (size_t)lo * R + r;
   int n = hi - lo, e = 0;
-  for (; e + 16 <= n; e += 16) {
-    float v[16];
+  for (; e + L <= n; e += L) {
+    float v[L];
 #pragma unroll
-    for (int q = 0; q < 16; ++q) v[q] = __ldcg(p + (size_t)(e + q) * R);
+    for (int q = 0; q < L; ++q) v[q] = __ldcg(p + (size_t)(e + q) * R);
 #pragma unroll
-    for (int q = 0; q < 16; ++q) acc += v[q];
+    for (int q = 0; q < L; ++q) acc += v[q];
   }
   for (; e < n; ++e) acc += __ldcg(p + (size_t)e * R);
   return acc;
 }
 
-// The tail of a one-launch sweep, after pw_tile_compact_sums wrote this
-// tile's K x R partials to part (the scan's).  Nodes with no point sum to
-// +0.0, and tile 0 writes them.  Then the block counts its partials per
+// The tail of a one-launch pass over a plan, after the block wrote this
+// tile's K partials (rows each) at their places.  Nodes with no point get
+// empty(n), and tile 0 calls it.  Then the block counts its partials per
 // node in done (the scan's sp counts, zero between launches): the block
 // that writes a node's last partial sees them all, sets the count back to
-// zero (so the next sweep in stream order, of either kind, can share it)
-// and runs that node's R chains into O (R, sp).  full: PW_TILE shared ints;
-// nfull: one shared int.
-template <int R>
-__device__ __forceinline__ void pw_tile_finish(int tile, int K, PwPlan pl,
-                                               const float* part, float* O,
-                                               int* done, int sp, int* full,
-                                               int* nfull) {
+// zero (so the next pass in stream order, of any kind, can share it) and
+// calls chain(n, r) for each of that node's rows.  full: PW_TILE shared
+// ints; nfull: one shared int.
+template <typename Empty, typename Chain>
+__device__ __forceinline__ void pw_tile_finish_with(int tile, int K, PwPlan pl,
+                                                    int* done, int sp,
+                                                    int rows, int* full,
+                                                    int* nfull, Empty empty,
+                                                    Chain chain) {
   int t = threadIdx.x;
   if (t == 0) *nfull = 0;
   if (tile == 0) {
-    for (int n = t; n < sp; n += PW_TILE) {
-      if (pl.node_off[n + 1] == pl.node_off[n]) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) O[r * sp + n] = 0.f;
-      }
-    }
+    for (int n = t; n < sp; n += PW_TILE)
+      if (pl.node_off[n + 1] == pl.node_off[n]) empty(n);
   }
   __threadfence();
   __syncthreads();
@@ -293,9 +372,29 @@ __device__ __forceinline__ void pw_tile_finish(int tile, int K, PwPlan pl,
   int nf = *nfull;
   if (nf == 0) return;
   __threadfence();
-  for (int j = t; j < nf * R; j += PW_TILE) {
-    int q = j / R, r = j - q * R;
-    int n = full[q];
-    O[r * sp + n] = pw_chain(part, pl.node_off[n], pl.node_off[n + 1], R, r);
+  for (int j = t; j < nf * rows; j += PW_TILE) {
+    int q = j / rows;
+    chain(full[q], j - q * rows);
   }
+}
+
+// The tail of a one-launch sweep (or segment sum), after
+// pw_tile_compact_sums wrote this tile's K x R partials to part (the
+// scan's): nodes with no point sum to +0.0; a node's R chains add its
+// partials in tile order into O (R, sp), L loads in flight (pw_chain).
+template <int R, int L = 16>
+__device__ __forceinline__ void pw_tile_finish(int tile, int K, PwPlan pl,
+                                               const float* part, float* O,
+                                               int* done, int sp, int* full,
+                                               int* nfull) {
+  pw_tile_finish_with(
+      tile, K, pl, done, sp, R, full, nfull,
+      [&](int n) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) O[r * sp + n] = 0.f;
+      },
+      [&](int n, int r) {
+        O[r * sp + n] =
+            pw_chain<L>(part, pl.node_off[n], pl.node_off[n + 1], R, r);
+      });
 }

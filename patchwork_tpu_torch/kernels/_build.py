@@ -41,8 +41,10 @@ _F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream are void*)
 _SIGNATURES = {
     "pw_seg_order_stat": [_VP] * 9 + [_I, _I, _I, _VP],
-    "pw_seg_sum": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pw_seg_sum": [_VP] * 5 + [_I] * 4 + [_VP],
+    "pw_seg_sum_planned": [_VP] * 10 + [_I] * 5 + [_VP],
     "pw_sweep_plan": [_VP] * 8 + [_I] * 6 + [_VP],
+    "pw_seg_plan": [_VP] * 8 + [_I] * 4 + [_VP],
     "pw_apply_sweep": [_VP] * 12 + [_I] * 6 + [_VP],
     "pw_moments2_sweep": [_VP] * 12 + [_I] * 5 + [_VP],
     "pw_remap_r1": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
@@ -59,7 +61,7 @@ _SIGNATURES = {
     "pw_split_decision": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "pw_finish_nodes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_seg_gather": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "pw_seg_minmax": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pw_seg_minmax": [_VP] * 6 + [_I] * 4 + [_VP],
     "pw_run_sum": [_VP] * 6 + [_I, _I, _VP],
     "pw_fit_level": [_VP] * 16 + [_I] * 8 + [_VP],
     "pw_level_fit": [_VP] * 18 + [_I] * 9 + [_VP],

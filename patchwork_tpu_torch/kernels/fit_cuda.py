@@ -18,7 +18,8 @@ family             replaces (patchwork_tpu/kernels/...)
 =================  ==================================================
 
 plus ``seg_sum`` (seg_pallas.py ``seg_sum_pallas``), the fixed-order
-segment sum that binning and the remap prologue use.  The other two
+segment sum that binning and the segment ops use, and ``seg_plan``, the
+tile plan of a segment binding that its sums add over.  The other two
 seg_pallas.py kernels are in :mod:`.seg_cuda`.
 
 The TPU kernels keep the whole cloud in VMEM and turn every segment op
@@ -52,7 +53,8 @@ from ..segment.segops import SegOps, flatten_batch, sort_by_segment
 
 __all__ = [
     "TILE", "sp_width", "LAUNCHES", "reset_launches", "plain",
-    "seg_order_stat", "seg_sum", "SweepPlan", "sweep_plan", "apply_sweep",
+    "seg_order_stat", "seg_sum", "SweepPlan", "sweep_plan", "seg_plan",
+    "apply_sweep",
     "moments2_sweep", "remap_r1", "remap_r1b", "remap_nodes", "remap_points",
     "node_stats",
     "early_outs", "deficient_round", "seed_init", "plane_table",
@@ -71,7 +73,7 @@ _SMEM_OPTIN_H100 = 232448        # bytes a block may ask for on an H100
 
 LAUNCHES = {"seg_order_stat": 0, "apply_sweep": 0, "moments2_sweep": 0,
             "level": 0, "seg_sum": 0, "fit_level": 0, "seg_gather": 0,
-            "seg_minmax": 0, "sweep_plan": 0, "run_sum": 0}
+            "seg_minmax": 0, "sweep_plan": 0, "seg_plan": 0, "run_sum": 0}
 
 
 def reset_launches() -> None:
@@ -138,6 +140,21 @@ def _launch(family: str, fn_name: str, tensors: tuple, *scalars) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc}")
     LAUNCHES[family] += 1
+
+
+_WORKSPACE: dict = {}      # (device, stream) -> zeroed int32 scratch
+
+
+def _workspace(dev: torch.device, ints: int) -> torch.Tensor:
+    """``ints`` zeroed int32 of scratch on the current stream of ``dev``,
+    for kernels that leave what they use zeroed again (their last block
+    clears it): calls in stream order share it, and no launch fills it."""
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < ints:
+        ws = _WORKSPACE[key] = torch.zeros(max(ints, 1 << 16),
+                                           dtype=torch.int32, device=dev)
+    return ws[:ints]
 
 
 def _check_points(pts: torch.Tensor, state: torch.Tensor | None = None):
@@ -258,14 +275,38 @@ def seg_sum_plain(rows, seg, num_segs):
     return _tile_sums(rows, seg, num_segs)
 
 
-def seg_sum(rows: torch.Tensor, seg: torch.Tensor, num_segs: int) -> torch.Tensor:
-    """Fixed-order segment sum: rows (B, R, N) f32, seg (B, N) int32 in
-    [0, num_segs) -> (B, R, num_segs).  N is zero-padded to a TILE multiple.
+def _pad_ids(t: torch.Tensor) -> torch.Tensor:
+    """Pad the last dimension of ids or a mask to a TILE multiple with 0
+    (False), as :func:`_pad_tiles` pads a sum's ids."""
+    pad = (-t.shape[-1]) % TILE
+    if pad:
+        t = torch.cat([t, t.new_zeros(t.shape[:-1] + (pad,))], -1)
+    return t.contiguous()
 
-    CUDA: one block per (tile, scan) stages its tile in shared memory; the
-    thread of node s adds the tile's points of s in point order; a second
-    kernel adds the per-tile partials in tile order.  Bound by reading the
-    rows once and writing/reading the (tiles, R, S) partials.
+
+def seg_sum(rows: torch.Tensor, seg: torch.Tensor, num_segs: int,
+            plan: SweepPlan | None = None) -> torch.Tensor:
+    """Fixed-order segment sum: rows (B, R, N) f32, seg (B, N) int32 in
+    [0, num_segs) -> (B, R, num_segs).  N is zero-padded to a TILE multiple
+    (padded points add +0.0 to segment 0, which changes no bit).  ``plan``
+    is :func:`seg_plan` of ``seg``, which a segment binding builds once
+    (``SegOps``).
+
+    CUDA, one launch, no float atomics, the order of ``_tile_sums``.  Over
+    a plan: a block per (tile, scan) stages its rows at the planned places,
+    a thread per (run, row) adds its run in point order, the block writes
+    K x R partials (K nodes in the tile) and the block that writes a
+    node's last partial adds them in tile order.  Without one (binning's
+    sum, ids new on every call) the kernel finds each tile's runs in
+    shared memory, writes a present node's partials at (tile, node) of a
+    (tiles, S, R) buffer it never fills and marks the tile in the node's
+    bitmap row; the last block of a scan adds each node's marked tiles in
+    order.  That route was measured against a plan built for the call and
+    the planned sum at binning's shape (B=8 x 131072, 81 segments): it is
+    faster by event time on every input, by device time on random-order
+    ids (PERF.md), so a call with no plan takes it at every shape.  Both
+    are bound by a node in every tile, whose chain waits for all its
+    partials; the rows are read once.
     """
     if not _on_card(rows, seg):
         return seg_sum_plain(rows, seg, num_segs)
@@ -277,11 +318,19 @@ def seg_sum(rows: torch.Tensor, seg: torch.Tensor, num_segs: int) -> torch.Tenso
         raise ValueError("seg_sum takes 1..8 rows")
     rows, seg = _pad_tiles(rows, seg)
     n = rows.shape[2]
-    partial = torch.empty((b, n // TILE, r, num_segs), dtype=torch.float32,
-                          device=rows.device)
     out = torch.empty((b, r, num_segs), dtype=torch.float32, device=rows.device)
-    _launch("seg_sum", "pw_seg_sum", (rows, seg, partial, out), b, r, n,
-            num_segs)
+    if plan is None:
+        nt = n // TILE
+        ws = _workspace(rows.device, b * (num_segs * ((nt + 31) // 32) + 1))
+        partial = torch.empty((b, nt, num_segs, r), dtype=torch.float32,
+                              device=rows.device)
+        _launch("seg_sum", "pw_seg_sum", (rows, seg, partial, ws, out), b, r,
+                n, num_segs)
+        return out
+    _check_seg_plan(plan, seg, num_segs)
+    _launch("seg_sum", "pw_seg_sum_planned",
+            (rows, *plan.tensors(), plan.done, plan.partial(r), out), b, r, n,
+            num_segs, plan.cap)
     return out
 
 
@@ -308,8 +357,9 @@ class SweepPlan:
     nodes' entry counts; dest (B, cap) int32: an entry's place among the
     scan's partials, where node s's lie from ``node_off[s]`` on in tile
     order.  start, tile_node and dest are 0 beyond what the scan uses.  On
-    the card it also carries the sweeps' per-node counters and their
-    partials, so a fit allocates them once."""
+    the card it also carries the per-node counters and the partials of the
+    passes over it, so a fit (or a segment binding) allocates them once,
+    and the stream it was last used on (a segment binding's plan)."""
 
     pos: torch.Tensor
     start: torch.Tensor
@@ -320,6 +370,7 @@ class SweepPlan:
     sp: int
     done: torch.Tensor | None = None
     _partial: torch.Tensor | None = None
+    stream: int | None = None
 
     @property
     def cap(self) -> int:
@@ -354,7 +405,10 @@ def _plan_cap(n: int, sp: int) -> int:
 
 
 def sweep_plan_plain(state, sp):
-    seg = state[:, 3].to(torch.int64)
+    return _plan_plain(state[:, 3].to(torch.int64), sp)
+
+
+def _plan_plain(seg, sp):
     b, n = seg.shape
     nt = n // TILE
     dev = seg.device
@@ -418,6 +472,49 @@ def sweep_plan(state: torch.Tensor, sp: int) -> SweepPlan:
     return plan
 
 
+def seg_plan(seg: torch.Tensor, num_segs: int) -> SweepPlan:
+    """The :class:`SweepPlan` of a segment binding's ids, seg (B, N) int32 in
+    [0, num_segs), zero-padded to a TILE multiple as the sums pad them; its
+    width ``sp`` is ``num_segs``.  A binding (``SegOps``) builds it once on
+    the card and hands it to every :func:`seg_sum` of the binding.  On the
+    CPU it is the plain plan, for tests: the plain versions add densely and
+    take none.
+
+    CUDA: the three kernels of :func:`sweep_plan` reading int ids, in one
+    call counted under ``"seg_plan"``."""
+    seg = _pad_ids(seg)
+    if not _on_card(seg):
+        return _plan_plain(seg.to(torch.int64), num_segs)
+    if seg.dtype != torch.int32 or seg.dim() != 2:
+        raise TypeError("seg must be (B, N) int32")
+    b, n = seg.shape
+    plan, bitmap = _plan_buffers(b, n, num_segs, seg.device)
+    plan.stream = torch._C._cuda_getCurrentRawStream(seg.get_device())
+    _launch("seg_plan", "pw_seg_plan",
+            (seg, plan.pos, plan.start, plan.tile_node, plan.tile_off, bitmap,
+             plan.node_off, plan.dest), b, n, num_segs, plan.cap)
+    return plan
+
+
+def _check_seg_plan(plan: SweepPlan, seg: torch.Tensor, num_segs: int):
+    """Raise unless ``plan`` is a card plan of (B, N) padded ids ``seg`` at
+    width num_segs; where the caller moved to another stream since the
+    plan's last use, order the current stream after that one (the plan's
+    counters and partials are shared in stream order)."""
+    if (plan.sp != num_segs or plan.pos.shape != seg.shape
+            or plan.pos.device != seg.device or plan.stream is None):
+        raise ValueError("the segment plan does not fit these ids")
+    index = seg.get_device()
+    cur = torch._C._cuda_getCurrentRawStream(index)
+    if cur != plan.stream:
+        now = torch.cuda.current_stream(index)
+        now.wait_stream(torch.cuda.ExternalStream(plan.stream, device=index))
+        for t in (*plan.sweep_tensors(), plan._partial):
+            if t is not None:
+                t.record_stream(now)
+        plan.stream = cur
+
+
 def _plan_buffers(b, n, sp, dev):
     """A card plan's tensors and its build scratch, the zeroed bitmap: one
     zeroed and one uninitialised allocation, cut into views."""
@@ -433,12 +530,14 @@ def _plan_buffers(b, n, sp, dev):
             at += size
         return out
 
+    # the bitmap's second half holds its words' prefix counts (a card plan
+    # built by pw_sweep_plan or pw_seg_plan)
     zeroed = [(b, n, torch.uint8), (b, n, torch.int32), (b, cap, torch.int32),
-              (b, sp, torch.int32), (b, sp * words, torch.int32)]
+              (b, sp, torch.int32), (2 * b, sp * words, torch.int32)]
     raw = [(b, n, torch.uint8), (b, nt + 1, torch.int32),
            (b, sp + 1, torch.int32)]
     start, tile_node, dest, done, bitmap = cut(torch.zeros(
-        b * (n // 4 + n + cap + sp + sp * words), dtype=torch.int32,
+        b * (n // 4 + n + cap + sp + 2 * sp * words), dtype=torch.int32,
         device=dev), zeroed)
     pos, tile_off, node_off = cut(torch.empty(
         b * (n // 4 + nt + 1 + sp + 1), dtype=torch.int32, device=dev), raw)

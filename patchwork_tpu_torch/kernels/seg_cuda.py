@@ -13,12 +13,14 @@ family          replaces (patchwork_tpu/kernels/...)
 ``seg_minmax``  seg_pallas.py ``seg_minmax_pallas`` / ``_minmax_kernel``
 ==============  ====================================================
 
-``seg_sum`` is :func:`.fit_cuda.seg_sum` (csrc/sweeps.cu), the fixed-order
-segment sum binning and the remap prologue already use.  ``seg_gather`` and
-``seg_minmax`` are in csrc/seg.cu; both are exact, so kernel and plain
-version agree bit for bit in any order.  As in :mod:`.fit_cuda`, a wrapper
-takes its plain version only for a CPU tensor, and launches its kernel (or
-raises) for a CUDA tensor; launches count into ``fit_cuda.LAUNCHES``.
+All three are in csrc/seg.cu.  ``seg_sum`` is :func:`.fit_cuda.seg_sum`,
+the fixed-order segment sum binning also uses; ``seg_gather`` and
+``seg_minmax`` are exact, so kernel and plain version agree bit for bit in
+any order.  A segment binding (``SegOps``) builds :func:`seg_plan` of its
+ids once on the card and hands it to each of its sums.
+As in :mod:`.fit_cuda`, a wrapper takes its plain version only for a CPU
+tensor, and launches its kernel (or raises) for a CUDA tensor; launches
+count into ``fit_cuda.LAUNCHES``.
 
 :func:`run_sum` (csrc/seg.cu) replaces no TPU kernel: it is the in-order
 sum of the voxel-grid filter's runs, which the JAX package leaves to XLA
@@ -33,14 +35,13 @@ import torch
 
 from ..segment.segops import f32_key, flatten_batch, key_f32
 from .fit_cuda import (LAUNCHES, _f32, _gather_rows, _launch, _on_card,
-                       seg_sum, seg_sum_plain)
+                       _workspace, seg_plan, seg_sum, seg_sum_plain)
 
-__all__ = ["LAUNCHES", "plain", "seg_sum", "seg_gather", "seg_minmax",
-           "run_sum"]
+__all__ = ["LAUNCHES", "plain", "seg_plan", "seg_sum", "seg_gather",
+           "seg_minmax", "run_sum"]
 
 _KEY_POS_INF = 0x7F800000                   # f32_key(+inf)
 _KEY_NEG_INF = -0x7F800001                  # f32_key(-inf)
-_MINMAX_SMEM_LIMIT = 200 * 1024
 
 
 def _check_seg(seg: torch.Tensor, b: int, n: int) -> None:
@@ -108,9 +109,16 @@ def seg_minmax(vals: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
     -> (mins, maxs), each (B, C, num_segs); +inf / -inf for empty segments.
     Values compare as order-preserving int keys, so -0.0 orders below +0.0.
 
-    CUDA: each block reduces a chunk of one scan's points into a shared
-    (2, C, S) key table with integer atomics and updates global memory once
-    per touched bin; exact in any order.  Bound by the shared atomics.
+    CUDA, one launch, exact in any order; the keys are kept as distances
+    from the identity (+inf's key for a min, -inf's for a max), so a zeroed
+    scratch that the kernel zeroes again serves every call: no fill
+    launch.  A block takes a chunk of 2048 points of a scan into a shared
+    table (global memory where it exceeds 48 KB), updates the scan's table
+    once per touched entry, and the last block of a scan writes its
+    results.  A warp whose live lanes hold one node (points in azimuth
+    order) combines their keys in one warp reduction and updates once, any
+    other warp lane by lane.  A segment binding calls it without its plan:
+    a version over the plan was slower on every input measured (PERF.md).
     """
     if not _on_card(vals, seg, mask):
         return seg_minmax_plain(vals, seg, mask, num_segs)
@@ -119,16 +127,12 @@ def seg_minmax(vals: torch.Tensor, seg: torch.Tensor, mask: torch.Tensor,
     _check_seg(seg, b, n)
     if mask.dtype != torch.bool or mask.shape != (b, n):
         raise ValueError("mask must be (B, N) bool")
-    if 2 * c * num_segs * 4 > _MINMAX_SMEM_LIMIT:
-        raise ValueError(f"C={c} x num_segs={num_segs} exceeds the shared table")
-    work = torch.empty((b, 2, c, num_segs), dtype=torch.int32,
-                       device=vals.device)
-    mins = torch.empty((b, c, num_segs), dtype=torch.float32,
-                       device=vals.device)
-    maxs = torch.empty_like(mins)
+    out = torch.empty((2, b, c, num_segs), dtype=torch.float32,
+                      device=vals.device)
+    ws = _workspace(vals.device, b * (2 * c * num_segs + 1))
     _launch("seg_minmax", "pw_seg_minmax",
-            (vals, seg, mask, work, mins, maxs), b, c, n, num_segs)
-    return mins, maxs
+            (vals, seg, mask, ws, out[0], out[1]), b, c, n, num_segs)
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------

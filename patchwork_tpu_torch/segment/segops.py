@@ -13,7 +13,10 @@ plain versions.  Two backends:
   formulation of the same ops, is taken as this form.
 * ``"pallas"``: the hand-written kernels of ``kernels/seg_cuda.py``
   (fixed-order sums, exact gathers and min/max), or their plain versions on
-  a CPU tensor or with ``plain=True``.
+  a CPU tensor or with ``plain=True``.  On the card a binding builds the
+  tile plan of its ids (``seg_cuda.seg_plan``) at its first sum or count,
+  and every later one adds over it: one launch a call.  Its min, max and
+  bbox take ``seg_minmax`` without the plan, the route measured faster.
 
 The segment sort (:func:`sort_by_segment`) stays plain torch, as the JAX
 package leaves it to XLA.
@@ -51,7 +54,9 @@ class SegOps:
 
     Points outside every segment must be parked on a trash id by the caller.
     Channel data is channel-first: (B, C, N) per point, (B, C, S) per
-    segment; a single channel may drop its C axis.
+    segment; a single channel may drop its C axis.  ``plan``: under
+    ``"pallas"`` on the card, the binding's tile plan once a sum has run
+    (None on the CPU and with ``plain=True``, which build none).
     """
 
     def __init__(self, seg: torch.Tensor, num_segs: int,
@@ -67,16 +72,29 @@ class SegOps:
 
             self.k = seg_cuda.plain if plain else seg_cuda
             self.seg = seg.to(torch.int32).contiguous()
+            self._card = not plain and self.seg.is_cuda \
+                and self.seg.shape[1] > 0
+            self.plan = None
         else:
             self.seg = seg.to(torch.int64)
             self.flat = flatten_batch(seg, num_segs)
+
+    def _plan(self) -> dict:
+        """The plan argument of a "pallas" sum: the binding's plan on the
+        card, built at the first call; none elsewhere."""
+        if not self._card:
+            return {}
+        if self.plan is None:
+            self.plan = self.k.seg_plan(self.seg, self.S)
+        return {"plan": self.plan}
 
     # -- reductions: (B, C, N) -> (B, C, S) ------------------------------
     def sum(self, data: torch.Tensor) -> torch.Tensor:
         if data.dim() == 2:
             return self.sum(data[:, None])[:, 0]
         if self.impl == "pallas":
-            return self.k.seg_sum(data.contiguous(), self.seg, self.S)
+            return self.k.seg_sum(data.contiguous(), self.seg, self.S,
+                                  **self._plan())
         b, c, n = data.shape
         out = data.new_zeros((b * self.S, c)).index_add_(
             0, self.flat, data.permute(0, 2, 1).reshape(b * n, c))

@@ -272,7 +272,7 @@ def test_generic_path_matches_plain(dev, monkeypatch, scene, impl):
     g_p = filter_ground_batched(xyz, valid, cfg, plain=True).ground
     assert torch.equal(g_k, g_p)
     assert fit_cuda.LAUNCHES == launches, "the plain path launched a kernel"
-    for fam in ("seg_sum", "seg_gather", "seg_minmax"):
+    for fam in ("seg_sum", "seg_gather", "seg_minmax", "seg_plan"):
         assert launches[fam] > 0, fam
     if impl == "fused":
         assert launches["fit_level"] > 0
@@ -930,3 +930,108 @@ def test_voxel_grid_filter_same_bits_run_after_run(dev, voxel):
     a = [t.to(dev) for t in (rows, first, live, run)]
     for x, y in zip(seg_cuda.run_sum(*a), seg_cuda.plain.run_sum(*a)):
         assert _equal(x, y)
+
+
+# ---- the segment ops over a binding's plan (#6 seg_sum, #8 seg_minmax) ----
+
+SEG_SHAPES = {   # label: (B, N, S): binning, the generic path's deeper
+    # levels, the wide table's binding and width, a ragged N
+    "binning": (8, 131072, 81),
+    "generic deeper": (8, 153600, 161),
+    "wide 4097": (2, 32768, 4097),
+    "wide 4224": (2, 32768, 4224),
+    "ragged": (3, 5000, 161),
+}
+
+
+def _seg_case(dev, label, order, seed):
+    b, n, s = SEG_SHAPES[label]
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, s, (b, n))
+    if order == "sorted":
+        seg = np.sort(seg, axis=1)
+    seg[:, ::97] = s - 1                         # a trash node, as the engine
+    seg = np.where(seg % 7 == 3, s - 1, seg)     # empty segments
+    return torch.from_numpy(seg.astype(np.int32)).to(dev), rng
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("label", sorted(SEG_SHAPES))
+def test_seg_sum_routes_match_plain(dev, label, order):
+    # without a plan (the dense route) and over a plan built for the call
+    # or once for a binding, each twice, every bit of the plain version
+    seg, rng = _seg_case(dev, label, order, 1)
+    b, n, s = SEG_SHAPES[label]
+    for r in (1, 2, 8):
+        rows = torch.from_numpy(_extreme_values(rng, (b, r, n))).to(dev)
+        want = fit_cuda.plain.seg_sum(rows, seg, s)
+        plan = fit_cuda.seg_plan(seg, s)
+        fit_cuda.reset_launches()
+        got = [fit_cuda.seg_sum(rows, seg, s) for _ in range(2)]
+        got += [fit_cuda.seg_sum(rows, seg, s, plan=fit_cuda.seg_plan(seg, s))
+                for _ in range(2)]
+        got += [fit_cuda.seg_sum(rows, seg, s, plan=plan) for _ in range(2)]
+        assert fit_cuda.LAUNCHES["seg_sum"] == 6
+        assert fit_cuda.LAUNCHES["seg_plan"] == 2
+        for g in got:
+            assert g.shape == (b, r, s) and _equal(g, want), r
+        assert int(plan.done.abs().sum()) == 0, "the counters must reset"
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("label", sorted(SEG_SHAPES))
+def test_seg_minmax_matches_plain_at_main_path_shapes(dev, label, order):
+    from patchwork_tpu_torch.kernels import seg_cuda
+
+    seg, rng = _seg_case(dev, label, order, 2)
+    b, n, s = SEG_SHAPES[label]
+    for c in (1, 3):
+        vals = torch.from_numpy(_extreme_values(rng, (b, c, n)))
+        vals[..., 6::59] = float("nan")
+        vals[..., 8::61] = -float("nan")
+        vals = vals.to(dev)
+        mask = torch.from_numpy(rng.random((b, n)) < 0.6).to(dev)
+        mask[seg == 5] = False                   # all of a segment masked
+        want = seg_cuda.plain.seg_minmax(vals, seg, mask, s)
+        fit_cuda.reset_launches()
+        got = [seg_cuda.seg_minmax(vals, seg, mask, s) for _ in range(2)]
+        assert fit_cuda.LAUNCHES["seg_minmax"] == 2
+        for mins, maxs in got:
+            assert _equal(mins, want[0]) and _equal(maxs, want[1]), c
+        assert torch.isposinf(want[0][:, :, 5]).all()
+        assert torch.isneginf(want[1][:, :, 5]).all()
+
+
+def test_segops_binding_builds_one_plan(dev):
+    from patchwork_tpu_torch.segment.segops import SegOps
+
+    seg, rng = _seg_case(dev, "generic deeper", "sorted", 3)
+    b, n, s = SEG_SHAPES["generic deeper"]
+    xyz = torch.from_numpy(_extreme_values(rng, (b, 3, n))).to(dev)
+    mask = torch.from_numpy(rng.random((b, n)) < 0.5).to(dev)
+    ops = SegOps(seg, s, "pallas")
+    ref = SegOps(seg, s, "pallas", plain=True)
+    fit_cuda.reset_launches()
+    calls = [("sum", (xyz,)), ("count", (mask,)), ("min", (xyz[:, 2], mask)),
+             ("max", (xyz[:, 0], mask)), ("bbox", (xyz, mask))]
+    for name, args in calls:
+        before = dict(fit_cuda.LAUNCHES)
+        got = getattr(ops, name)(*args)
+        d = {k: v - before[k] for k, v in fit_cuda.LAUNCHES.items()
+             if v != before[k]}
+        # the sums build the plan once; min, max and bbox take none
+        fam = "seg_minmax" if name in ("min", "max", "bbox") else "seg_sum"
+        plans = {"seg_plan": 1} if name == "sum" else {}
+        assert d.pop(fam) == 1 and d == plans, (name, d)
+        want = getattr(ref, name)(*args)
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        assert all(_equal(g, w) for g, w in zip(got, want)), name
+    assert fit_cuda.LAUNCHES["seg_plan"] == 1, "one plan for the binding"
+    assert ops.plan is not None and ref.plan is None
+    # another stream orders itself after the plan's last use
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        again = ops.sum(xyz)
+    side.synchronize()
+    assert _equal(again, ref.sum(xyz))

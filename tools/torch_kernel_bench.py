@@ -32,13 +32,24 @@ Sections (all by default; ``--sections gather,sweeps`` runs some):
               percentile seeds (Sp 128) of the main path: by events, host
               time per call, and the device time and count of each of its
               kernels per call;
+``seg``       the segment ops on the inputs the main path gives them:
+              ``seg_sum`` at binning's shape (B=8 x 131072, velodyne and
+              split terrain, 81 segments) and at the generic path's deeper
+              levels (split terrain B=8 x 153600, 161 segments), on each
+              route (a call with no plan, plan + planned, the plan alone,
+              over a binding's plan) beside ``index_add_``; ``seg_minmax``
+              there; each held to its plain version
+              twice, by events and by device time kernel by kernel, with
+              its bound (a tree from before the plan times its one route);
 ``profiles``  one profiled batch per path (device busy time, host span,
-              idle share, top kernels), 262144 points included;
+              idle share, top kernels), 262144 points and split terrain
+              at 153600 on the generic path included;
 ``scans``     scans/s of ``filter_ground_batched`` at B=8 (CUDA events, 10
               batches after a warm-up): velodyne at 131072 points, 128-beam
               velodyne at 153600 on the generic path and with the level
-              path forced, and at 262144 (not in the default list: run the
-              tool in two trees in turns to compare them).
+              path forced, at 262144, and split terrain at 131072 (level
+              path) and 153600 (generic path) (not in the default list:
+              run the tool in two trees in turns to compare them).
 
 Prints the card's name and power limit and what ptxas reported for these
 kernels first; exits non-zero on any mismatch.
@@ -64,7 +75,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
     ap.add_argument("--sections", default="gather,sweeps,fits,level_fit,"
-                    "order_stat,profiles")
+                    "order_stat,seg,profiles")
     args = ap.parse_args()
     sections = set(args.sections.split(","))
     if not torch.cuda.is_available():
@@ -86,7 +97,8 @@ def main() -> int:
     for m in re.finditer(r"Compiling entry function '(\w+)'[^\n]*\n"
                          r"[^\n]*\n\s*([^\n]*spill[^\n]*)\n"
                          r"ptxas info\s+: (Used [^\n]+)", log):
-        if re.search(r"apply_kernel|pw_plan_|fit_level|pw_m2|gather|pw_os_",
+        if re.search(r"apply_kernel|pw_plan_|fit_level|pw_m2|gather|pw_os_|"
+                     r"pw_seg_sum|minmax",
                      m.group(1)):
             print(f"[ptxas] {m.group(1)}: {m.group(3)}; {m.group(2)}",
                   flush=True)
@@ -538,6 +550,128 @@ def main() -> int:
     if "order_stat" in sections:
         order_stat_section()
 
+    # ---- the segment ops: #6 seg_sum, #8 seg_minmax, a binding's plan ----
+    def first_calls(data, cfg, module, name, label_of):
+        """The arguments of the first call of ``module.name`` under each
+        label ``label_of(args)`` gives (None: not kept) in one batch.  Its
+        own copy of ``chip_smoke.first_calls``, so that the tool also runs
+        in a tree from before that function (the parent of an A/B)."""
+        saved = {}
+        orig = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            label = label_of(a)
+            if label and label not in saved:
+                saved[label] = chip_smoke._clone(a)
+            return orig(*a, **kw)
+
+        setattr(module, name, wrapped)
+        try:
+            filter_ground_batched(*data, cfg)
+        finally:
+            setattr(module, name, orig)
+        return saved
+
+    def seg_section():
+        rows = {}
+        split_gen = batch(chip_smoke.split_terrain_cloud, B, N_GEN)
+        # a tree from before the binding's plan times its one route
+        bound = hasattr(fit_cuda, "seg_plan")
+        sums = {}
+        for scene in ("velodyne", "split"):
+            for label, a in first_calls(scenes[scene], PatchworkConfig(),
+                                        fit_cuda, "seg_sum",
+                                        lambda a: "binning").items():
+                sums[f"{label} {scene} B={B} N={N}"] = a
+        deeper = first_calls(
+            split_gen, PatchworkConfig(), seg_cuda, "seg_sum",
+            lambda a: f"R={a[0].shape[1]}" if a[2] > 81 else None)
+        for label, a in deeper.items():
+            sums[f"generic deeper split B={B} N={N_GEN} {label}"] = a
+        for label, (x, seg, s) in sums.items():
+            want = fit_cuda.seg_sum_plain(x, seg, s)
+            calls = {"call": lambda: fit_cuda.seg_sum(x, seg, s)}
+            if bound:
+                plan = fit_cuda.seg_plan(seg, s)
+                calls.update({
+                    "plan + planned": lambda: fit_cuda.seg_sum(
+                        x, seg, s, plan=fit_cuda.seg_plan(seg, s)),
+                    "plan": lambda: fit_cuda.seg_plan(seg, s),
+                    "over the binding's plan": lambda: fit_cuda.seg_sum(
+                        x, seg, s, plan=plan)})
+            for name, fn in calls.items():
+                if name != "plan":
+                    check(bits(fn(), want) and bits(fn(), want),
+                          f"seg_sum {label} {name} vs plain, twice")
+            src = x.permute(0, 2, 1).reshape(-1, x.shape[1]).contiguous()
+            idx = (seg.long() + s * torch.arange(B, device=dev)[:, None]
+                   ).reshape(-1)
+            acc = torch.zeros((B * s, x.shape[1]), device=dev)
+            row = {"shape": [list(x.shape), s],
+                   "bound_us": 1e3 * chip_smoke.kernel_bound(
+                       "seg_sum", (x, seg, s), {}, want, None)[0],
+                   "index_add_": {
+                       "events_us": 1e3 * events_ms(
+                           lambda: acc.index_add_(0, idx, src), 200),
+                       "device_us": device_us(
+                           lambda: acc.index_add_(0, idx, src), 50,
+                           r"^(?!.*pw_)")}}
+            for name, fn in calls.items():
+                row[name] = {"events_us": 1e3 * events_ms(fn, 200),
+                             "device_us": device_us(fn, 50, "pw_"),
+                             "kernels": {k.split("(")[0]: t / 50 for t, _, k in
+                                         kernel_rows_of(fn, 50)
+                                         if "pw_" in k}}
+            rows[label] = row
+            print(f"[seg_sum] {label} R={x.shape[1]} S={s}: " + "; ".join(
+                f"{name} {row[name]['device_us']:.2f} us device, "
+                f"{row[name]['events_us']:.2f} by events"
+                for name in [*calls, "index_add_"])
+                + f"; bound {row['bound_us']:.2f} us; kernels " + str(
+                    {name: {k: round(v, 2) for k, v in row[name][
+                        "kernels"].items()} for name in calls}), flush=True)
+        mm = first_calls(
+            split_gen, PatchworkConfig(), seg_cuda, "seg_minmax",
+            lambda a: f"C={a[0].shape[1]}" if a[3] > 81 else None)
+        mm.update({"C=3 level 0": a for a in first_calls(
+            split_gen, PatchworkConfig(), seg_cuda, "seg_minmax",
+            lambda a: "C=3 level 0" if a[3] == 81 else None).values()})
+        for label, (v, seg, mask, s) in mm.items():
+            label = f"generic split B={B} N={N_GEN} {label}"
+            want = seg_cuda.seg_minmax_plain(v, seg, mask, s)
+            calls = {"call": lambda: seg_cuda.seg_minmax(v, seg, mask, s)}
+            for name, fn in calls.items():
+                check(all(bits(g, w) for g, w in zip(fn(), want))
+                      and all(bits(g, w) for g, w in zip(fn(), want)),
+                      f"seg_minmax {label} {name} vs plain, twice")
+            row = {"shape": [list(v.shape), s],
+                   "bound_us": 1e3 * chip_smoke.kernel_bound(
+                       "seg_minmax", (v, seg, mask, s), {}, want, None)[0]}
+            for name, fn in calls.items():
+                row[name] = {"events_us": 1e3 * events_ms(fn, 200),
+                             "device_us": device_us(fn, 50, "pw_")}
+            rows[label] = row
+            print(f"[seg_minmax] {label} S={s}: " + "; ".join(
+                f"{name} {row[name]['device_us']:.2f} us device, "
+                f"{row[name]['events_us']:.2f} by events" for name in calls)
+                + f"; bound {row['bound_us']:.2f} us", flush=True)
+        out["seg"] = rows
+
+    def kernel_rows_of(fn, reps):
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return kernel_rows(prof)
+
+    if "seg" in sections:
+        seg_section()
+
     # ---- one profiled batch per path: device busy, span, idle share ----
     def profile_batch(label, fn):
         from torch.profiler import ProfilerActivity, profile
@@ -574,11 +708,15 @@ def main() -> int:
                           engine, filter_ground_batched, *gen, cfg))
     if "profiles" in sections or "scans" in sections:
         big = batch(velodyne_like_cloud, B, chip_smoke.N_BIG, num_beams=128)
+        split_gen = batch(chip_smoke.split_terrain_cloud, B, N_GEN)
     if "profiles" in sections:
         profile_batch(f"velodyne128 B={B} N={chip_smoke.N_BIG} exact",
                       lambda: filter_ground_batched(*big, PatchworkConfig()))
         profile_batch(f"split B={B} N={N} exact, level path",
                       lambda: filter_ground_batched(*scenes["split"],
+                                                    PatchworkConfig()))
+        profile_batch(f"split B={B} N={N_GEN} exact, generic path",
+                      lambda: filter_ground_batched(*split_gen,
                                                     PatchworkConfig()))
     if "scans" in sections:
         rates = {}
@@ -596,6 +734,8 @@ def main() -> int:
             chip_smoke.scans_per_s(*big, PatchworkConfig(), False, 10)
         rates[f"split N={N} exact"] = chip_smoke.scans_per_s(
             *scenes["split"], PatchworkConfig(), False, 10)
+        rates[f"split N={N_GEN} exact, generic path"] = chip_smoke.scans_per_s(
+            *split_gen, PatchworkConfig(), False, 10)
         for label, rate in rates.items():
             print(f"[scans] {label} B={B}: {rate:.1f} scans/s", flush=True)
         out["scans_per_s"] = rates
