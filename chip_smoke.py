@@ -76,8 +76,23 @@ Phases, one line each:
      config (fit_level) and segment_impl "pallas"; (f) PatchworkNode over 16
      velodyne frames at batch sizes 1 and 8, with frames/s and stage times.
      Every count and mask is held to filter_ground/filter_ground_batched on
-     the same points, and all eight kernel families must launch.
-Then a JSON line per kernel family and, last, the device line.  Exits
+     the same points, and all eight kernel families must launch;
+  8. SLAM: tools/torch_slam_bench.py's path on its closed loop drive at
+     SLAM_KEYFRAMES keyframes of full scans (20400 points, the bench's
+     config: capacity 32768, 1024 obstacle and 512 ground samples, 12 ICP
+     steps): parallel ICP, loop closures, the degree-capped pose graph,
+     landmark BA; the three ATEs, the closures, the stage seconds and the
+     launches of the level, seg_sum and seg_plan families in the session
+     (each must launch), beside the JAX package's figures for the same
+     drive on a CPU; differing mask bits kernel vs plain on one extract
+     chunk (expect 0); BA's sums over a plan of their ids against
+     seg_sum_plain on the session's own obs_k and obs_l and at the
+     1000-keyframe shape (BA_SHAPE), with their times, the plan's and
+     index_add_'s (expect max_abs_err 0); bundle_adjust twice on the
+     session's problem (equal bits).  It fails on any of those, on a pose
+     graph worse than odometry, or on a final ATE of SLAM_ATE_MAX or more.
+Then a JSON line per kernel family (launches summed over phases 4, 7 and
+8; seg_sum's entry carries BA's sums) and, last, the device line.  Exits
 non-zero, and prints no result line, if there is no CUDA device, a build
 fails, or any phase fails.
 """
@@ -105,6 +120,16 @@ B_WIDE, N_WIDE = 2, 32768   # the scans of the configuration below
 # a node table too wide for the one-launch fit: its fits run as loops of sweeps
 WIDE_NODES = 4096
 HARD_POINTS = 65536
+SLAM_KEYFRAMES = 200   # phase 8's loop drive (tools/torch_slam_bench.py)
+SLAM_ATE_MAX = 0.5     # the bar of tests/test_slam.py's end-to-end run
+# BA at 1000 keyframes (K, L, O): the JAX package's CPU run in
+# SLAM_TPU_r05.json, cpu_baseline_final_cfg.ba_detail
+BA_SHAPE = (1000, 339, 205991)
+# tools/slam_bench.py --keyframes 200 --icp parallel, the JAX package on a
+# CPU (its samples differ: threefry, not torch.Generator)
+JAX_SLAM_200KF_CPU = {"ate_odometry_m": 2.1207, "ate_posegraph_m": 0.2112,
+                      "ate_ba_m": 0.1619, "loop_closures": 63,
+                      "n_landmarks": 271, "n_obs": 41191}
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3   # float sums; the design adds in one order
 IOU_FAST_MIN = 0.999
 IOU_EVAL_TOL = 0.001
@@ -1140,6 +1165,171 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     return front
 
 
+def ba_sum_checks(dev, fails, label, bindings) -> dict:
+    """BA's segment sums over a binding's plan (kernel #6, planned route)
+    against seg_sum_plain, every chunk of eight rows, twice, every bit; the
+    time of the hot sums of a CG iteration (R=6 over keyframes, R=3 over
+    landmarks) by events and on the device, the plan's build, the bound and
+    index_add_'s time.  bindings: name -> (values (O, C), ids (O,), n)."""
+    import torch
+    from patchwork_tpu_torch.kernels import fit_cuda
+    from patchwork_tpu_torch.slam import ba
+
+    nan = float("nan")
+    out = {}
+    for name, (vals, ids, n) in bindings.items():
+        # the layout of ba._make_seg_sums' "onehot" sums
+        ids_p = fit_cuda._pad_ids(ids.int()[None])
+        rows = ba._tile_rows(vals, ids_p.shape[1])
+        plan = fit_cuda.seg_plan(ids_p, n)
+        err, ok = 0.0, True
+        for c0 in range(0, rows.shape[0], 8):
+            r = rows[c0:c0 + 8][None]
+            want = fit_cuda.seg_sum_plain(r, ids_p, n)
+            got = [fit_cuda.seg_sum(r, ids_p, n, plan=plan) for _ in range(2)]
+            ok = ok and all(_same_bits(g, want) for g in got)
+            err = max(err, _abs_err(got[0], want))
+        hot = rows[:6 if name.startswith("obs_k") else 3][None].contiguous()
+
+        def fn():
+            return fit_cuda.seg_sum(hot, ids_p, n, plan=plan)
+
+        src = hot[0].T.contiguous()
+        idx = ids_p[0].long()
+        acc = torch.zeros((n, hot.shape[1]), dtype=torch.float32, device=dev)
+        row = {"O": int(ids.numel()), "S": int(n), "channels": rows.shape[0],
+               "max_abs_err": err, "ok": ok, "R": hot.shape[1],
+               "ms": _time_ms(fn, (), {}, 20),
+               "device_ms": _device_ms(fn, 20, "pw_seg_sum") or nan,
+               "plan_device_ms": _device_ms(
+                   lambda: fit_cuda.seg_plan(ids_p, n), 10, "pw_plan") or nan,
+               "library_ms": library_ms("seg_sum", (hot, ids_p, n)),
+               "library_device_ms": _device_ms(
+                   lambda: acc.index_add_(0, idx, src), 20, ".") or nan,
+               "bound_ms": kernel_bound("seg_sum", (hot, ids_p, n), {},
+                                        fn(), None)[0]}
+        fails.check(ok and err == 0.0, f"BA sums {label} {name}: the planned "
+                    f"sum differs from seg_sum_plain (max_abs_err {err})")
+        out[name] = row
+        print(f"[8 slam] BA sums {label} {name} O={row['O']} S={n} "
+              f"C={row['channels']}: planned vs plain max_abs_err {err:.3g} "
+              f"{'ok' if ok else 'MISMATCH'}; R={row['R']} {row['ms']:.4f} ms "
+              f"(device {row['device_ms']:.4f}), plan device "
+              f"{row['plan_device_ms']:.4f} ms, index_add_ "
+              f"{row['library_ms']:.4f} ms (device "
+              f"{row['library_device_ms']:.4f}), bound {row['bound_ms']:.4f}"
+              f" ms", flush=True)
+    return out
+
+
+def phase8(dev, card: str, fails: Failures) -> tuple:
+    """SLAM on the card (see the module docstring); returns (the launch
+    counts of the session per kernel family, the JSON keys of BA's sums)."""
+    import numpy as np
+    import torch
+    from patchwork_tpu_torch import filter_ground_batched
+    from patchwork_tpu_torch.kernels import fit_cuda
+    from patchwork_tpu_torch.slam import ba, landmarks
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_slam_bench
+
+    keep = {}
+    cap = Capture(landmarks, ["bundle_adjust"], {})
+    fit_cuda.reset_launches()
+    try:
+        res = torch_slam_bench.run(SLAM_KEYFRAMES, icp="parallel", keep=keep,
+                                   log=lambda line: None)
+    finally:
+        cap.restore()
+    launches = dict(fit_cuda.LAUNCHES)
+    odo = keep["odo"]
+    print(f"[8 slam] {SLAM_KEYFRAMES} keyframes, parallel ICP, loop drive "
+          f"(tools/torch_slam_bench.py) on {card}: ATE odometry "
+          f"{res['ate_odometry_m']:.4f} m, pose graph "
+          f"{res['ate_posegraph_m']:.4f} m, BA {res['ate_ba_m']:.4f} m; "
+          f"{res['loop_closures']} loop closures; stage s "
+          f"{json.dumps(res['stage_s'])}; BA {json.dumps(res['ba_detail'])}",
+          flush=True)
+    print(f"[8 slam] the JAX package on this drive, CPU (a quality "
+          f"reference, not a time): {JAX_SLAM_200KF_CPU}", flush=True)
+    print(f"[8 slam] launches in the session: level {launches['level']}, "
+          f"seg_sum {launches['seg_sum']}, seg_plan {launches['seg_plan']}; "
+          f"all {dict((k, v) for k, v in launches.items() if v)}", flush=True)
+    for fam in ("level", "seg_sum", "seg_plan"):
+        fails.check(launches[fam] > 0, f"SLAM: kernel family {fam} never "
+                                       "launched")
+    fails.check(odo.device.type == "cuda"
+                and odo._frames.stacked["obst"].is_cuda,
+                "SLAM: the odometry does not live on the card")
+    fails.check(res["ate_posegraph_m"] <= res["ate_odometry_m"],
+                "SLAM: the pose graph made the trajectory worse")
+    fails.check(res["ate_ba_m"] < SLAM_ATE_MAX,
+                f"SLAM: final ATE {res['ate_ba_m']} >= {SLAM_ATE_MAX} m")
+
+    # one extract chunk: the kernels' masks against the plain path's
+    scans = keep["scans"][:8]
+    longest = max(len(p) for p in keep["scans"])
+    n = min(odo.cfg.capacity, max(4096, -(-longest // 4096) * 4096))
+    padded = [odo._pad_host(p, n) for p in scans]
+    xyz = torch.from_numpy(np.stack([x for x, _ in padded])).to(dev)
+    valid = torch.from_numpy(np.stack([v for _, v in padded])).to(dev)
+    gk = filter_ground_batched(xyz, valid, odo.pw).ground
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    gp = filter_ground_batched(xyz, valid, odo.pw, plain=True).ground
+    end.record()
+    torch.cuda.synchronize()
+    rate_p = len(scans) / (start.elapsed_time(end) / 1000.0)
+    rate_k = scans_per_s(xyz, valid, odo.pw, False, 10)
+    diff = int((gk != gp).sum().item())
+    print(f"[8 slam] extract chunk B={len(scans)} N={n} (max_levels "
+          f"{odo.pw.max_levels}): kernel vs plain differing mask bits {diff} "
+          f"of {gk.numel()}; kernel path {rate_k:.1f} scans/s, plain path "
+          f"{rate_p:.2f} scans/s (one batch)", flush=True)
+    fails.check(diff == 0, f"SLAM extract: {diff} mask bits differ")
+
+    # BA: the planned sums on the session's own bindings, and two runs of
+    # the solver on the same problem
+    (prob,), kw = cap.saved["bundle_adjust"]
+    k, l = prob.poses.shape[0], prob.points.shape[0]
+    r, jp, jx = ba._obs_blocks(prob.poses, prob.points, prob)
+    o = prob.obs_k.numel()
+    # the dense solver's third binding: the distinct (keyframe, landmark)
+    # pairs, more ids than the plan's shared table holds
+    pairs = torch.unique(prob.obs_k.long() * l + prob.obs_l.long(),
+                         return_inverse=True)[1]
+    entry = {"session": ba_sum_checks(dev, fails, f"{SLAM_KEYFRAMES} kf", {
+        "obs_k, A (36 channels)": (ba._outer(jp, jp).reshape(o, 36),
+                                    prob.obs_k, k),
+        "obs_l, C and bx (12 channels)": (torch.cat(
+            [ba._outer(jx, jx).reshape(o, 9),
+             torch.einsum("oai,oa->oi", jx, r)], 1), prob.obs_l, l),
+        "pairs, B (18 channels)": (ba._outer(jp, jx).reshape(o, 18), pairs,
+                                   int(pairs.max()) + 1)})}
+    # the 1000-keyframe shape (BA_SHAPE): keyframe ids in runs, landmark
+    # ids scattered, values from a seed
+    bk, bl, bo = BA_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ok_ = torch.arange(bo, device=dev) // -(-bo // bk)
+    ol_ = torch.randint(0, bl, (bo,), generator=gen, device=dev)
+    vals = torch.randn((bo, 36), generator=gen, device=dev)
+    entry["1000 kf shape"] = ba_sum_checks(dev, fails, "1000 kf shape", {
+        "obs_k (36 channels)": (vals, ok_, bk),
+        "obs_l (12 channels)": (vals[:, :12].contiguous(), ol_, bl)})
+    solver = ba._auto_solver(k, l)
+    runs = [ba.bundle_adjust(prob, **kw) for _ in range(2)]
+    same = _same_bits(runs[0].poses, runs[1].poses) and _same_bits(
+        runs[0].points, runs[1].points)
+    print(f"[8 slam] bundle_adjust K={k} L={l} O={o} ({solver}, "
+          f"{kw.get('iters')} iterations) run twice: poses and points equal "
+          f"bit for bit {same}", flush=True)
+    fails.check(same, "SLAM: two bundle_adjust runs on one problem differ")
+    entry["solver"] = solver
+    return launches, entry
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1714,6 +1904,11 @@ def main() -> int:
     launches_front = phase7(dev, card, fails)
     launches = {k: launches[k] + launches_front[k] for k in launches}
 
+    # ---- 8. SLAM ----
+    stamp("8 slam")
+    launches_slam, extra_ba = phase8(dev, card, fails)
+    launches = {k: launches[k] + launches_slam[k] for k in launches}
+
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed",
               file=sys.stderr)
@@ -1733,6 +1928,7 @@ def main() -> int:
         ("seg_minmax", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:165"),
     ]
     extra["seg_sum"]["plan_launches"] = launches["seg_plan"]
+    extra["seg_sum"]["bundle_adjust"] = extra_ba
     stamp("results")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + f,

@@ -15,7 +15,8 @@ import torch
 
 __all__ = ["demo_point_cloud", "demo_labels", "uniform_cube_cloud",
            "velodyne_like_cloud", "iac_three_lidar_scene", "fused_iac_cloud",
-           "hard_labeled_scene", "HARD_SCENES"]
+           "hard_labeled_scene", "HARD_SCENES", "simulate_world",
+           "simulate_sequence"]
 
 
 def demo_point_cloud(
@@ -359,3 +360,67 @@ def hard_labeled_scene(name: str, num_points: int = 65536, seed: int = 0):
     perm = rng.permutation(num_points)
     return (np.ascontiguousarray(xyz[perm], dtype=np.float32),
             np.ascontiguousarray(labels[perm]))
+
+
+def simulate_world(
+    seed: int = 0,
+    num_pillars: int = 60,
+    extent: float = 60.0,
+    pts_per_pillar: int = 120,
+    ground_points: int = 12000,
+    ground_sigma_z: float = 0.03,
+) -> np.ndarray:
+    """A fixed synthetic world: flat ground + vertical pillar obstacles.
+
+    Used to simulate LiDAR sequences for odometry tests (no real KITTI
+    data available offline); pillars give the scan matcher x/y/yaw
+    structure, the ground constrains z/roll/pitch.
+    """
+    rng = np.random.default_rng(seed)
+    ground = np.empty((ground_points, 3), np.float32)
+    ground[:, 0] = rng.uniform(-extent, extent, ground_points)
+    ground[:, 1] = rng.uniform(-extent, extent, ground_points)
+    ground[:, 2] = rng.normal(0.0, ground_sigma_z, ground_points)
+
+    centers = rng.uniform(-extent * 0.8, extent * 0.8, (num_pillars, 2))
+    pillars = np.empty((num_pillars * pts_per_pillar, 3), np.float32)
+    for i, c in enumerate(centers):
+        s = slice(i * pts_per_pillar, (i + 1) * pts_per_pillar)
+        pillars[s, 0] = c[0] + rng.normal(0, 0.15, pts_per_pillar)
+        pillars[s, 1] = c[1] + rng.normal(0, 0.15, pts_per_pillar)
+        pillars[s, 2] = rng.uniform(0.5, 3.0, pts_per_pillar)
+    return np.concatenate([ground, pillars]).astype(np.float32)
+
+
+def simulate_sequence(
+    num_frames: int = 8,
+    seed: int = 0,
+    step_xy: float = 1.0,
+    yaw_rate: float = 0.03,
+    sensor_noise: float = 0.02,
+    world: np.ndarray = None,
+):
+    """Simulate a LiDAR drive through ``simulate_world``.
+
+    Returns (scans, gt_poses): scans[i] is the world seen from pose i
+    (sensor frame), gt_poses[i] is world_T_sensor (4, 4).
+    """
+    rng = np.random.default_rng(seed + 1)
+    if world is None:
+        world = simulate_world(seed)
+    scans, poses = [], []
+    pose = np.eye(4, dtype=np.float32)
+    for i in range(num_frames):
+        inv = np.linalg.inv(pose).astype(np.float32)
+        local = world @ inv[:3, :3].T + inv[:3, 3]
+        local = local + rng.normal(0, sensor_noise, local.shape).astype(np.float32)
+        scans.append(local.astype(np.float32))
+        poses.append(pose.copy())
+        # advance: forward + slight turn
+        yaw = yaw_rate
+        c, s = np.cos(yaw), np.sin(yaw)
+        step = np.eye(4, dtype=np.float32)
+        step[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        step[0, 3] = step_xy
+        pose = (pose @ step).astype(np.float32)
+    return scans, np.stack(poses)

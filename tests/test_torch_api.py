@@ -1,5 +1,6 @@
 """The port's fast mode, batching, API and import contract."""
 
+import os
 import subprocess
 import sys
 
@@ -74,13 +75,19 @@ _MODULES = ["kernels.fit_cuda", "kernels.seg_cuda", "api", "processor",
             "fusion.fusion", "io.synthetic", "io.kitti", "io.native",
             "io.bag", "ops.sampling", "ops.geometry", "ops.pointcloud",
             "utils.metrics", "utils.checkpoint", "utils.debug", "viz.bev",
-            "viz.visualization"]
+            "viz.visualization", "slam", "slam.se3", "slam.scan_matching",
+            "slam.ba", "slam.pose_graph", "slam.odometry", "slam.landmarks",
+            "slam.mapping"]
 
 
 def test_imports_without_jax():
+    # the port's modules, its SLAM tool and chip_smoke.py
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     mods = ", ".join(f"patchwork_tpu_torch.{m}" for m in _MODULES)
     code = ("import sys; sys.modules['jax'] = None; "
-            f"import patchwork_tpu_torch, {mods}; "
+            f"sys.path[:0] = [{root!r}, {os.path.join(root, 'tools')!r}]; "
+            f"import patchwork_tpu_torch, {mods}, torch_slam_bench, "
+            "chip_smoke; "
             "assert not any(m == 'patchwork_tpu' or m.startswith('patchwork_tpu.')"
             " for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
@@ -114,7 +121,11 @@ def _no_device_entry_points():
                                      PointCloudProcessor, launch, node)
     from patchwork_tpu_torch.io.synthetic import fused_iac_cloud
 
+    from patchwork_tpu_torch.slam import (BAProblem, LidarOdometry,
+                                          PoseGraph, build_ba_problem)
+
     pts = demo_point_cloud(300, seed=0)
+    eye, z3 = np.eye(4, dtype=np.float32)[None], np.zeros((1, 3), np.float32)
     desc = launch.LaunchDescription(
         node.NodeParams(), PatchworkConfig(),
         {"demo": {"frames": 1, "points": 300}}, capacity=512)
@@ -132,6 +143,12 @@ def _no_device_entry_points():
             pts, 30.0, **kw),
         "remove_ego_vehicle": lambda **kw: RecursivePatchwork.remove_ego_vehicle(
             pts, 2.5, **kw),
+        "LidarOdometry": lambda **kw: LidarOdometry(**kw),
+        "BAProblem.from_numpy": lambda **kw: BAProblem.from_numpy(
+            eye, z3, [0], [0], z3, [1.0], **kw),
+        "PoseGraph.from_numpy": lambda **kw: PoseGraph.from_numpy(
+            eye, [0], [0], eye, np.eye(6)[None], **kw),
+        "build_ba_problem": lambda **kw: build_ba_problem(eye, [z3], **kw),
         **{f"PointCloudProcessor.{name}":
            lambda name=name, args=args, **kw: getattr(
                PointCloudProcessor, name)(pts, *args, **kw)
