@@ -90,9 +90,32 @@ Phases, one line each:
      1000-keyframe shape (BA_SHAPE), with their times, the plan's and
      index_add_'s (expect max_abs_err 0); bundle_adjust twice on the
      session's problem (equal bits).  It fails on any of those, on a pose
-     graph worse than odometry, or on a final ATE of SLAM_ATE_MAX or more.
-Then a JSON line per kernel family (launches summed over phases 4, 7 and
-8; seg_sum's entry carries BA's sums) and, last, the device line.  Exits
+     graph worse than odometry, or on a final ATE of SLAM_ATE_MAX or more;
+  9. parallel (patchwork_tpu_torch/parallel, bundle_adjust_sharded): (a) in
+     this process, a one-rank group over NCCL: make_shardmap_fused (the
+     level path), make_sharded_pipeline (points sharded: the generic path
+     with the kernel segment ops) and make_shardmap_patchwork
+     (PatchworkConfig.patchwork()) on the velodyne and split-terrain
+     batches of phase 4, each mask equal bit for bit to filter_ground_batched
+     with the impl the entry point runs, the counts to the masks' sums;
+     bundle_adjust_sharded on phase 8's session problem and a PCG problem
+     at BA_SHAPE (MH_BA_ITERS steps) equal bit for bit to bundle_adjust;
+     kernels #1, #2, #6, #7 and #8 launched; the explicit engine's segment
+     ops over one binding of the velodyne batch, whole and each sp-2 half
+     (#6's 4- and 6-row sums over its plan, #7's gather, #8's bboxes), and
+     BA's sums over each W=2 rank's half of both problems' observations,
+     every bit against their plain versions; the dp engine's time against
+     filter_ground_batched's; (b) two processes on the one card over gloo
+     (NCCL refuses two ranks on one device), tools/torch_multihost_bench.py
+     --procs 2 on the velodyne batch and the two BA problems: dp over 2,
+     sp over 2, the explicit engine at sp 2, each 0 differing mask bits
+     against the same computation on one process, BA's poses within
+     the tool's ONE_PROCESS_TOL (1e-4) of bundle_adjust and two runs equal
+     bit for bit; each rank's launches per kernel family and times (CUDA
+     events) beside the card's name and power limit.
+Then a JSON line per kernel family (launches summed over phases 4, 7, 8
+and 9, phase 9's part (b) as its workers count them; seg_sum's entry
+carries BA's sums) and, last, the device line.  Exits
 non-zero, and prints no result line, if there is no CUDA device, a build
 fails, or any phase fails.
 """
@@ -130,6 +153,8 @@ BA_SHAPE = (1000, 339, 205991)
 JAX_SLAM_200KF_CPU = {"ate_odometry_m": 2.1207, "ate_posegraph_m": 0.2112,
                       "ate_ba_m": 0.1619, "loop_closures": 63,
                       "n_landmarks": 271, "n_obs": 41191}
+# phase 9: Gauss-Newton steps of the sharded BA runs
+MH_BA_ITERS = 2
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3   # float sums; the design adds in one order
 IOU_FAST_MIN = 0.999
 IOU_EVAL_TOL = 0.001
@@ -1165,12 +1190,14 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     return front
 
 
-def ba_sum_checks(dev, fails, label, bindings) -> dict:
+def ba_sum_checks(dev, fails, label, bindings, tag="8 slam",
+                  timed=True) -> dict:
     """BA's segment sums over a binding's plan (kernel #6, planned route)
-    against seg_sum_plain, every chunk of eight rows, twice, every bit; the
-    time of the hot sums of a CG iteration (R=6 over keyframes, R=3 over
-    landmarks) by events and on the device, the plan's build, the bound and
-    index_add_'s time.  bindings: name -> (values (O, C), ids (O,), n)."""
+    against seg_sum_plain, every chunk of eight rows, twice, every bit;
+    with ``timed``, the time of the hot sums of a CG iteration (R=6 over
+    keyframes, R=3 over landmarks) by events and on the device, the plan's
+    build, the bound and index_add_'s time.  bindings: name -> (values
+    (O, C), ids (O,), n)."""
     import torch
     from patchwork_tpu_torch.kernels import fit_cuda
     from patchwork_tpu_torch.slam import ba
@@ -1189,6 +1216,16 @@ def ba_sum_checks(dev, fails, label, bindings) -> dict:
             got = [fit_cuda.seg_sum(r, ids_p, n, plan=plan) for _ in range(2)]
             ok = ok and all(_same_bits(g, want) for g in got)
             err = max(err, _abs_err(got[0], want))
+        fails.check(ok and err == 0.0, f"BA sums {label} {name}: the planned "
+                    f"sum differs from seg_sum_plain (max_abs_err {err})")
+        if not timed:
+            out[name] = {"O": int(ids.numel()), "S": int(n),
+                         "channels": rows.shape[0], "max_abs_err": err,
+                         "ok": ok}
+            print(f"[{tag}] BA sums {label} {name} O={ids.numel()} S={n} "
+                  f"C={rows.shape[0]}: planned vs plain max_abs_err "
+                  f"{err:.3g} {'ok' if ok else 'MISMATCH'}", flush=True)
+            continue
         hot = rows[:6 if name.startswith("obs_k") else 3][None].contiguous()
 
         def fn():
@@ -1208,10 +1245,8 @@ def ba_sum_checks(dev, fails, label, bindings) -> dict:
                    lambda: acc.index_add_(0, idx, src), 20, ".") or nan,
                "bound_ms": kernel_bound("seg_sum", (hot, ids_p, n), {},
                                         fn(), None)[0]}
-        fails.check(ok and err == 0.0, f"BA sums {label} {name}: the planned "
-                    f"sum differs from seg_sum_plain (max_abs_err {err})")
         out[name] = row
-        print(f"[8 slam] BA sums {label} {name} O={row['O']} S={n} "
+        print(f"[{tag}] BA sums {label} {name} O={row['O']} S={n} "
               f"C={row['channels']}: planned vs plain max_abs_err {err:.3g} "
               f"{'ok' if ok else 'MISMATCH'}; R={row['R']} {row['ms']:.4f} ms "
               f"(device {row['device_ms']:.4f}), plan device "
@@ -1224,7 +1259,8 @@ def ba_sum_checks(dev, fails, label, bindings) -> dict:
 
 def phase8(dev, card: str, fails: Failures) -> tuple:
     """SLAM on the card (see the module docstring); returns (the launch
-    counts of the session per kernel family, the JSON keys of BA's sums)."""
+    counts of the session per kernel family, the JSON keys of BA's sums,
+    the session's BA problem and keywords)."""
     import numpy as np
     import torch
     from patchwork_tpu_torch import filter_ground_batched
@@ -1327,7 +1363,271 @@ def phase8(dev, card: str, fails: Failures) -> tuple:
           f"bit for bit {same}", flush=True)
     fails.check(same, "SLAM: two bundle_adjust runs on one problem differ")
     entry["solver"] = solver
-    return launches, entry
+    return launches, entry, (prob, kw)
+
+
+def explicit_binding_checks(fails, label, xyz, valid, cfg) -> None:
+    """The explicit engine's segment ops over one SegOps binding, as
+    shardmap_engine.patchwork_level builds it on a rank's block (xyz
+    (B, n, 3), valid (B, n)): the fit loop's 4- and 6-row sums (#6 over the
+    binding's plan), a per-point gather of a 3-row table (#7) and the
+    bounding boxes (#8), each twice against its plain version
+    (fit_cuda.seg_sum_plain, torch.gather, seg_cuda.seg_minmax_plain) on
+    the same inputs, every bit."""
+    import torch
+    from patchwork_tpu_torch.kernels import fit_cuda, seg_cuda
+    from patchwork_tpu_torch.segment.binning import bin_points
+    from patchwork_tpu_torch.segment.segops import SegOps
+
+    s = cfg.num_patches + 1
+    patch, in_patch, _, fin, _ = bin_points(xyz, valid, cfg)
+    xt = torch.where(fin[..., None], xyz, torch.zeros_like(xyz)).permute(
+        0, 2, 1).contiguous()
+    g = in_patch.to(torch.float32)[:, None]
+    x, y, z = (xt * g).unbind(1)
+    ops = SegOps(patch, s, "pallas")
+    seg = ops.seg
+    m1 = torch.cat([g, xt * g], 1)
+    m2 = torch.stack([x * x, x * y, x * z, y * y, y * z, z * z], 1)
+    sums = ops.sum(m1)
+    table = sums[:, 1:4] / torch.clamp(sums[:, :1], min=1.0)
+    checks = {
+        "sum 4 rows": (lambda: ops.sum(m1),
+                       fit_cuda.seg_sum_plain(m1, seg, s)),
+        "sum 6 rows": (lambda: ops.sum(m2),
+                       fit_cuda.seg_sum_plain(m2, seg, s)),
+        "gather 3 rows": (lambda: ops.gather(table), torch.gather(
+            table, 2, seg.long()[:, None].expand(-1, 3, -1))),
+        "bbox": (lambda: ops.bbox(xt, in_patch), seg_cuda.seg_minmax_plain(
+            xt, seg, in_patch, s))}
+    ok = {}
+    for name, (fn, want) in checks.items():
+        ok[name] = _same_bits(fn(), want) and _same_bits(fn(), want)
+        fails.check(ok[name], f"parallel (a) explicit binding {label} "
+                              f"{name}: differs from its plain version")
+    print(f"[9 parallel] (a) explicit engine's binding {label} "
+          f"B={xyz.shape[0]} n={xyz.shape[1]} S={s} (plan "
+          f"{ops.plan is not None}): kernel vs plain, twice, every bit "
+          f"{ok}", flush=True)
+
+
+def ba_block_bindings(prob, lo: int, hi: int, dense: bool) -> dict:
+    """The bindings bundle_adjust_sharded sums over on the rank that holds
+    observations lo..hi-1 of ``prob``, with the values of its first step:
+    keyframes (A, 36 channels), landmarks (C and bx, 12) and, for the dense
+    solver, the problem's (keyframe, landmark) pairs (B, 18)."""
+    import torch
+    from patchwork_tpu_torch.slam import ba
+
+    k, l = prob.poses.shape[0], prob.points.shape[0]
+    block = prob._replace(obs_k=prob.obs_k[lo:hi], obs_l=prob.obs_l[lo:hi],
+                          obs_p=prob.obs_p[lo:hi], obs_w=prob.obs_w[lo:hi])
+    r, jp, jx = ba._obs_blocks(prob.poses, prob.points, block)
+    o = hi - lo
+    out = {"obs_k, A (36 channels)": (ba._outer(jp, jp).reshape(o, 36),
+                                      block.obs_k, k),
+           "obs_l, C and bx (12 channels)": (torch.cat(
+               [ba._outer(jx, jx).reshape(o, 9),
+                torch.einsum("oai,oa->oi", jx, r)], 1), block.obs_l, l)}
+    if dense:
+        uniq, inv = torch.unique(prob.obs_k.long() * l + prob.obs_l.long(),
+                                 return_inverse=True)
+        out["pairs, B (18 channels)"] = (ba._outer(jp, jx).reshape(o, 18),
+                                         inv[lo:hi], uniq.numel())
+    return out
+
+
+def phase9(dev, card: str, fails: Failures, scenes: dict,
+           ba_session) -> dict:
+    """Multi-process execution (see the module docstring); returns the
+    launches of the sharded entry points per kernel family: part (a)'s in
+    this process, and part (b)'s workers' timed calls."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
+    from patchwork_tpu_torch.kernels import fit_cuda
+    from patchwork_tpu_torch.parallel import (
+        host_summary, initialize_multihost, make_mesh, make_sharded_pipeline,
+        make_shardmap_fused, make_shardmap_patchwork)
+    from patchwork_tpu_torch.slam import (BAProblem, bundle_adjust,
+                                          bundle_adjust_sharded)
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_multihost_bench as mh
+
+    launches = dict.fromkeys(fit_cuda.LAUNCHES, 0)
+
+    def counted(label, fn, *args, **kw):
+        """A sharded entry point's call, its launches added to the phase's
+        and printed."""
+        fit_cuda.reset_launches()
+        out = fn(*args, **kw)
+        for k, v in fit_cuda.LAUNCHES.items():
+            launches[k] += v
+        print(f"[9 parallel] (a) {label}: launches "
+              f"{dict((k, v) for k, v in fit_cuda.LAUNCHES.items() if v)}",
+              flush=True)
+        return out
+
+    def bits(a, b) -> int:
+        return int((a != b).sum().item())
+
+    cfg, cfg_pw = PatchworkConfig(), PatchworkConfig.patchwork()
+    prob_s, kw_s = ba_session
+    pcg = mh.synthetic_ba(*BA_SHAPE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        # (a) in this process: a one-rank group over NCCL
+        initialize_multihost(f"file://{tmp}/store", 1, 0, backend="nccl")
+        mesh = make_mesh()
+        print(f"[9 parallel] (a) {host_summary()}, backend "
+              f"{dist.get_backend()}, mesh {tuple(mesh.mesh.shape)}",
+              flush=True)
+        for scene, (xyz, valid) in scenes.items():
+            want = filter_ground_batched(xyz, valid, cfg).ground
+            want_sp = filter_ground_batched(
+                xyz, valid, cfg.replace(segment_impl="pallas")).ground
+            want_pw = filter_ground_batched(xyz, valid, cfg_pw).ground
+            g_dp = counted(f"{scene} make_shardmap_fused",
+                           make_shardmap_fused(cfg, mesh), xyz, valid).ground
+            res, g_cnt, ng_cnt = counted(
+                f"{scene} make_sharded_pipeline",
+                make_sharded_pipeline(cfg, mesh), xyz, valid)
+            g_pw = counted(f"{scene} make_shardmap_patchwork",
+                           make_shardmap_patchwork(cfg_pw, mesh), xyz, valid)
+            diff = {"make_shardmap_fused": bits(g_dp, want),
+                    "make_sharded_pipeline": bits(res.ground, want_sp),
+                    "make_shardmap_patchwork": bits(g_pw, want_pw)}
+            cnt_err = bits(g_cnt, res.ground.sum(1)) + bits(
+                ng_cnt, (res.valid & ~res.ground).sum(1))
+            print(f"[9 parallel] (a) {scene} B={xyz.shape[0]} "
+                  f"N={xyz.shape[1]}: differing mask bits against "
+                  f"filter_ground_batched with the impl each runs {diff}; "
+                  f"count errors {cnt_err}", flush=True)
+            fails.check(not any(diff.values()) and cnt_err == 0,
+                        f"parallel (a) {scene}: {diff}, counts {cnt_err}")
+        xyz, valid = scenes["velodyne"]
+        half = xyz.shape[1] // 2
+        explicit_binding_checks(fails, "whole scans", xyz, valid, cfg_pw)
+        for r in range(2):
+            part = slice(r * half, (r + 1) * half)
+            explicit_binding_checks(fails, f"sp 2, rank {r}'s half",
+                                    xyz[:, part], valid[:, part], cfg_pw)
+        # five rounds in turns, ten calls each, so that drift of the card
+        # falls on both alike
+        fn = make_shardmap_fused(cfg, mesh)
+        rounds = [(_time_ms(fn, (xyz, valid), {}, 10),
+                   _time_ms(filter_ground_batched, (xyz, valid, cfg), {}, 10))
+                  for _ in range(5)]
+        ms_dp, ms_one = (sorted(r[i] for r in rounds)[2] for i in (0, 1))
+        b = xyz.shape[0]
+        print(f"[9 parallel] (a) velodyne B={b} N={xyz.shape[1]}, median of "
+              f"5 rounds in turns: make_shardmap_fused at W=1 {ms_dp:.3f} "
+              f"ms ({b / ms_dp * 1e3:.1f} scans/s), filter_ground_batched "
+              f"{ms_one:.3f} ms ({b / ms_one * 1e3:.1f} scans/s); rounds ms "
+              f"{[(round(x, 3), round(y, 3)) for x, y in rounds]}; CUDA "
+              f"events on {card}", flush=True)
+        prob_p = BAProblem.from_numpy(*(pcg[k] for k in mh.BA_KEYS),
+                                      device=dev)
+        for label, prob, kw in (("session", prob_s, kw_s),
+                                ("1000 kf shape", prob_p,
+                                 {"iters": MH_BA_ITERS, "solver": "pcg"})):
+            s = counted(f"bundle_adjust_sharded {label}",
+                        bundle_adjust_sharded, prob, mesh, **kw)
+            o = bundle_adjust(prob, **kw)
+            same = _same_bits(s.poses, o.poses) and _same_bits(s.points,
+                                                               o.points)
+            print(f"[9 parallel] (a) bundle_adjust_sharded {label} K="
+                  f"{prob.poses.shape[0]} L={prob.points.shape[0]} O="
+                  f"{prob.obs_k.shape[0]} {kw}: equal to bundle_adjust bit "
+                  f"for bit {same}", flush=True)
+            fails.check(same, f"parallel (a) BA {label}: differs from "
+                              "bundle_adjust at W=1")
+        # the sums of (b)'s two ranks, each over its half of the
+        # observations (padded as the tool pads them)
+        for label, prob, dense in (("session", prob_s, True),
+                                   ("1000 kf shape", prob_p, False)):
+            a = mh._pad_obs({k: getattr(prob, k).cpu().numpy()
+                             for k in mh.BA_KEYS}, 2)
+            prob = BAProblem.from_numpy(*(a[k] for k in mh.BA_KEYS),
+                                        device=dev)
+            o = prob.obs_k.shape[0] // 2
+            for r in range(2):
+                ba_sum_checks(dev, fails, f"{label}, W=2 rank {r}'s block",
+                              ba_block_bindings(prob, r * o, (r + 1) * o,
+                                                dense),
+                              tag="9 parallel", timed=False)
+        print(f"[9 parallel] (a) launches in all "
+              f"{dict((k, v) for k, v in launches.items() if v)}", flush=True)
+        for fam in ("level", "seg_order_stat", "seg_sum", "seg_gather",
+                    "seg_minmax"):
+            fails.check(launches[fam] > 0,
+                        f"parallel (a): kernel family {fam} never launched")
+        dist.destroy_process_group()
+
+        # (b) two processes on the one card, over gloo
+        arrays = {"xyz": xyz.cpu().numpy(), "valid": valid.cpu().numpy()}
+        for key in mh.BA_KEYS:
+            arrays[f"ba_dense_{key}"] = getattr(prob_s, key).cpu().numpy()
+            arrays[f"ba_pcg_{key}"] = pcg[key]
+        np.savez(os.path.join(tmp, "in.npz"), **arrays)
+        out = os.path.join(tmp, "out.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools",
+                                          "torch_multihost_bench.py"),
+             "--procs", "2", "--device", "cuda", "--backend", "gloo",
+             "--batch", str(xyz.shape[0]), "--points", str(xyz.shape[1]),
+             "--inputs", os.path.join(tmp, "in.npz"), "--ba-iters",
+             str(MH_BA_ITERS), "--timeout", "300", "--json-out", out],
+            capture_output=True, text=True, timeout=420, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        print(f"[9 parallel] (b) tools/torch_multihost_bench.py --procs 2 "
+              f"--backend gloo: rc {proc.returncode} in {wall:.1f} s; "
+              f"{proc.stdout.strip()[-600:]}", flush=True)
+        if not fails.check(proc.returncode == 0 and os.path.exists(out),
+                           "parallel (b): the two-process run failed"):
+            print(proc.stderr[-4000:], flush=True)
+            return launches
+        with open(out) as f:
+            doc = json.load(f)
+        for w in doc["workers"]:
+            fams = {}
+            for arm in w["launches"].values():
+                for k, v in arm.items():
+                    fams[k] = fams.get(k, 0) + v
+                    launches[k] += v
+            print(f"[9 parallel] (b) rank {w['rank']} ({w['summary']}): "
+                  f"differing mask bits dp {w['dp_bit_errors']}, pipeline "
+                  f"{w['pipeline_bit_errors']}, sp ({w['sp_impl']}) "
+                  f"{w['sp_bit_errors']}, explicit {w['explicit_bit_errors']}"
+                  f" (vs the engine {w['explicit_vs_engine_bit_errors']}); "
+                  f"BA max |pose diff| dense "
+                  f"{w['ba_dense_pose_max_abs_diff']:.3g}, pcg "
+                  f"{w['ba_pcg_pose_max_abs_diff']:.3g}, two runs equal "
+                  f"{w['ba_dense_runs_equal']} {w['ba_pcg_runs_equal']}; "
+                  f"launches {json.dumps(w['launches'])}; collectives "
+                  f"{json.dumps(w['collectives'])}", flush=True)
+            print(f"[9 parallel] (b) rank {w['rank']} times ms "
+                  f"({w['clock']}) {json.dumps(w['ms'])}; dp "
+                  f"{w['dp_scans_per_s']:.1f} scans/s, one process (both "
+                  f"ranks on the card) {w['one_process_scans_per_s']:.1f}; "
+                  f"ordered_sum of a CG iteration's two blocks "
+                  f"{w['cg_collectives_us']:.1f} us; on {card}", flush=True)
+            fails.check(w["ok"], f"parallel (b) rank {w['rank']}: a check "
+                                 "failed")
+            fails.check(fams.get("level", 0) > 0
+                        and fams.get("seg_gather", 0) > 0
+                        and fams.get("seg_minmax", 0) > 0,
+                        f"parallel (b) rank {w['rank']}: launches {fams}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -1906,8 +2206,14 @@ def main() -> int:
 
     # ---- 8. SLAM ----
     stamp("8 slam")
-    launches_slam, extra_ba = phase8(dev, card, fails)
+    launches_slam, extra_ba, ba_session = phase8(dev, card, fails)
     launches = {k: launches[k] + launches_slam[k] for k in launches}
+
+    # ---- 9. multi-process execution ----
+    stamp("9 parallel")
+    launches_par = phase9(dev, card, fails, {"velodyne": velo, "split": split},
+                          ba_session)
+    launches = {k: launches[k] + launches_par[k] for k in launches}
 
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed",

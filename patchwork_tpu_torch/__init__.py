@@ -17,9 +17,11 @@ from .core.config import LidarConfig, PatchworkConfig, default_lidar_configs
 from .core.types import GroundResult, PointCloud, ScanBatch
 from .fusion.fusion import LidarFusion
 from .processor import PointCloudProcessor
-from .segment.engine import filter_ground, filter_ground_batched
+from .segment.engine import (filter_ground, filter_ground_batched,
+                             make_filter_ground, make_filter_ground_batched)
 
 __all__ = ["PatchworkConfig", "LidarConfig", "default_lidar_configs",
            "PointCloud", "ScanBatch", "GroundResult", "filter_ground",
-           "filter_ground_batched", "RecursivePatchwork",
+           "filter_ground_batched", "make_filter_ground",
+           "make_filter_ground_batched", "RecursivePatchwork",
            "PointCloudProcessor", "LidarFusion"]

@@ -4,17 +4,23 @@ Counterpart of ``patchwork_tpu/core/device.py``.  Unlike the reference's
 CudaManager (cuda/cuda_interface.cu:44-95) nothing here falls back to the
 CPU: :func:`cuda_device` raises when there is no card, and every engine
 entry point runs on the card unless the caller asks for the CPU
-(:func:`resolve_device`).
+(:func:`resolve_device`).  The CudaManager's introspection is here too
+(:func:`accelerator_available`, :func:`initialize`, :func:`cleanup`,
+:func:`device_info`).  The JAX package's ``enable_compilation_cache`` has
+no counterpart: nothing here is compiled per shape (the kernels are built
+once per source, ``kernels/_build.py``).
 """
 
 from __future__ import annotations
 
 import subprocess
+from typing import Dict, List
 
 import torch
 
 __all__ = ["pin_fp32", "true_div", "cuda_device", "resolve_device",
-           "card_info"]
+           "card_info", "accelerator_available", "initialize", "cleanup",
+           "device_info"]
 
 
 def pin_fp32() -> None:
@@ -66,3 +72,44 @@ def card_info() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip()
+
+
+def accelerator_available() -> bool:
+    """True when a CUDA card is visible (CudaManager::isAvailable)."""
+    return torch.cuda.is_available()
+
+
+def initialize() -> bool:
+    """Initialise CUDA now rather than at the first kernel; returns
+    :func:`accelerator_available` (CudaManager::initialize,
+    cuda_interface.cu:61-88)."""
+    if not torch.cuda.is_available():
+        return False
+    torch.cuda.init()
+    return True
+
+
+def cleanup() -> None:
+    """Release the caching allocator's free blocks and the kernels'
+    per-device scratch (CudaManager::cleanup)."""
+    if not torch.cuda.is_available():
+        return
+    from ..kernels import fit_cuda
+
+    fit_cuda._WORKSPACE.clear()
+    torch.cuda.empty_cache()
+
+
+def device_info() -> List[Dict[str, str]]:
+    """One record per visible CUDA device: ``id``, ``platform`` ("gpu"),
+    ``kind`` (the device name) and ``process`` (this rank of the
+    ``torch.distributed`` group, 0 outside one); empty without a card."""
+    if not torch.cuda.is_available():
+        return []
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+    return [{"id": str(i), "platform": "gpu",
+             "kind": torch.cuda.get_device_name(i), "process": str(rank)}
+            for i in range(torch.cuda.device_count())]

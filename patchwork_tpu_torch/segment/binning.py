@@ -22,7 +22,7 @@ from ..kernels import fit_cuda
 from ..ops.pointcloud import distance_2d, finite_mask, polar_angle
 
 __all__ = ["ring_edges", "sector_edges", "patch_centers", "PatchAssignment",
-           "assign_patches"]
+           "bin_points", "assign_patches"]
 
 
 def ring_edges(cfg: PatchworkConfig) -> np.ndarray:
@@ -63,11 +63,10 @@ class PatchAssignment(NamedTuple):
     rel_dist: torch.Tensor  # (B, P+1) float32 per-patch mean dist / radius
 
 
-def assign_patches(xyz: torch.Tensor, valid: torch.Tensor,
-                   cfg: PatchworkConfig, plain: bool = False) -> PatchAssignment:
-    """Patch id ring*num_sectors+sector of every point of (B, N, 3) scans.
-
-    ``plain=True`` takes the segment sum's plain version on any device."""
+def bin_points(xyz: torch.Tensor, valid: torch.Tensor, cfg: PatchworkConfig):
+    """Patch id ring*num_sectors+sector of every point of (..., N, 3) points,
+    computed point by point: (patch int32 (P for no patch), in_patch,
+    in_zone, finite, dist).  Non-finite points count as invalid."""
     num_p = cfg.num_patches
     fin = valid & finite_mask(xyz)
     xyz = torch.where(fin[..., None], xyz, torch.zeros_like(xyz))
@@ -85,6 +84,16 @@ def assign_patches(xyz: torch.Tensor, valid: torch.Tensor,
     in_patch = in_zone & in_ring & in_sector
     patch = torch.where(in_patch, ring * cfg.num_sectors + sector,
                         torch.full_like(ring, num_p))
+    return patch, in_patch, in_zone, fin, d
+
+
+def assign_patches(xyz: torch.Tensor, valid: torch.Tensor,
+                   cfg: PatchworkConfig, plain: bool = False) -> PatchAssignment:
+    """Patch id ring*num_sectors+sector of every point of (B, N, 3) scans.
+
+    ``plain=True`` takes the segment sum's plain version on any device."""
+    num_p = cfg.num_patches
+    patch, in_patch, in_zone, fin, d = bin_points(xyz, valid, cfg)
 
     # Per-patch mean 2D distance, threaded unchanged through the recursion
     # (cpp:383-390): a fixed-order segment sum, bitwise the same on the

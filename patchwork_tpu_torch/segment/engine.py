@@ -41,6 +41,7 @@ reads one flag per iteration.  The host reads one flag per level.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -54,7 +55,8 @@ from .binning import assign_patches
 from .segops import IMPLS, SegOps, default_impl, flatten_batch, sort_by_segment
 
 __all__ = ["level", "level_reference", "filter_ground",
-           "filter_ground_batched"]
+           "filter_ground_batched", "make_filter_ground",
+           "make_filter_ground_batched"]
 
 _F32 = np.float32
 _BIG = 3.0e38   # finite sentinel of the deficient loop (engine.py:420)
@@ -629,3 +631,31 @@ def filter_ground(xyz: torch.Tensor, valid: torch.Tensor, cfg: PatchworkConfig,
     res = filter_ground_batched(xyz[None], valid[None], cfg, plain=plain)
     return GroundResult(ground=res.ground[0], valid=res.valid[0],
                         in_zone=res.in_zone[0], in_patch=res.in_patch[0])
+
+
+def _with_impl(cfg: PatchworkConfig, impl: str | None) -> PatchworkConfig:
+    return cfg if impl is None else dataclasses.replace(cfg, segment_impl=impl)
+
+
+def make_filter_ground(cfg: PatchworkConfig, impl: str | None = None):
+    """Single-scan engine (xyz (N, 3), valid (N,)) -> GroundResult, with
+    ``impl`` (when given) in place of ``cfg.segment_impl``.  The JAX
+    package's jit-compiled factory (engine.py:667); here a closure, since
+    nothing is compiled per shape."""
+    cfg = _with_impl(cfg, impl)
+
+    def fn(xyz: torch.Tensor, valid: torch.Tensor) -> GroundResult:
+        return filter_ground(xyz, valid, cfg)
+
+    return fn
+
+
+def make_filter_ground_batched(cfg: PatchworkConfig, impl: str | None = None):
+    """Batched engine (xyz (B, N, 3), valid (B, N)) -> GroundResult, as
+    :func:`make_filter_ground` (engine.py:677)."""
+    cfg = _with_impl(cfg, impl)
+
+    def fn(xyz: torch.Tensor, valid: torch.Tensor) -> GroundResult:
+        return filter_ground_batched(xyz, valid, cfg)
+
+    return fn

@@ -18,6 +18,10 @@ plain versions.  Two backends:
   and every later one adds over it: one launch a call.  Its min, max and
   bbox take ``seg_minmax`` without the plan, the route measured faster.
 
+The free functions :func:`seg_sum`, :func:`seg_min` and :func:`seg_max`
+take one (N, ...) array and its (N,) ids, as ``jax.ops.segment_*`` do:
+kernels #6 and #8 on a CUDA tensor, their plain versions on the CPU.
+
 The segment sort (:func:`sort_by_segment`) stays plain torch, as the JAX
 package leaves it to XLA.
 """
@@ -28,8 +32,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["default_impl", "IMPLS", "flatten_batch", "SegOps", "SegmentSort",
-           "sort_by_segment", "f32_key", "key_f32"]
+__all__ = ["default_impl", "IMPLS", "flatten_batch", "seg_sum", "seg_min",
+           "seg_max", "SegOps", "SegmentSort", "sort_by_segment", "f32_key",
+           "key_f32"]
 
 IMPLS = ("fused", "scatter", "onehot", "pallas")
 
@@ -47,6 +52,66 @@ def flatten_batch(seg: torch.Tensor, num_segs: int) -> torch.Tensor:
     b = seg.shape[0]
     off = torch.arange(b, device=seg.device, dtype=torch.int64)[:, None]
     return (seg.to(torch.int64) + off * num_segs).reshape(-1)
+
+
+def _rows(data: torch.Tensor, seg: torch.Tensor):
+    """(N, ...) float32 data, (N,) ids -> the kernels' (1, C, N) rows and
+    (1, N) int32 ids."""
+    if data.dtype != torch.float32:
+        raise TypeError(f"expected float32 data, got {data.dtype}")
+    if seg.dim() != 1 or seg.shape[0] != data.shape[0]:
+        raise ValueError("seg must be (N,) with data (N, ...)")
+    rows = data.reshape(data.shape[0], -1).T.contiguous()[None]
+    return rows, seg.to(torch.int32)[None].contiguous()
+
+
+def _unrows(out: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """(C, S) per-segment rows -> (S, ...) in the trailing shape of data."""
+    return out.T.reshape((out.shape[1],) + data.shape[1:])
+
+
+def seg_sum(data: torch.Tensor, seg: torch.Tensor,
+            num_segments: int) -> torch.Tensor:
+    """Per-segment sum of (N, ...) float32 data by (N,) ids in
+    [0, num_segments) -> (num_segments, ...); 0 for an empty segment.
+
+    Kernel #6 (``fit_cuda.seg_sum``, one dense launch per 8 channels, no
+    plan) on a CUDA tensor, its plain version on the CPU: both add each
+    segment in the kernel's fixed order (point order inside a tile of 256
+    points, then the tiles in order), which is ``jax.ops.segment_sum``'s
+    point order where a segment's points lie in one tile."""
+    from ..kernels import fit_cuda
+
+    rows, ids = _rows(data, seg)
+    out = torch.cat([fit_cuda.seg_sum(rows[:, c0:c0 + 8].contiguous(), ids,
+                                      num_segments)[0]
+                     for c0 in range(0, rows.shape[1], 8)])
+    return _unrows(out, data)
+
+
+def _seg_minmax(data, seg, num_segments, which):
+    from ..kernels import seg_cuda
+
+    rows, ids = _rows(data, seg)
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    out = seg_cuda.seg_minmax(rows, ids, mask, num_segments)[which]
+    return _unrows(out[0], data)
+
+
+def seg_min(data: torch.Tensor, seg: torch.Tensor,
+            num_segments: int) -> torch.Tensor:
+    """Per-segment min of (N, ...) float32 data -> (num_segments, ...); +inf
+    for an empty segment, as ``jax.ops.segment_min``.  Kernel #8
+    (``seg_cuda.seg_minmax``) on a CUDA tensor, its plain version on the
+    CPU; exact in any order."""
+    return _seg_minmax(data, seg, num_segments, 0)
+
+
+def seg_max(data: torch.Tensor, seg: torch.Tensor,
+            num_segments: int) -> torch.Tensor:
+    """Per-segment max, -inf for an empty segment (``jax.ops.segment_max``);
+    as :func:`seg_min`."""
+    return _seg_minmax(data, seg, num_segments, 1)
 
 
 class SegOps:

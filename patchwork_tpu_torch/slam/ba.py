@@ -1,10 +1,10 @@
-"""Bundle adjustment with Schur-complement reduction on one device.
+"""Bundle adjustment with Schur-complement reduction, on one device or with
+the observations sharded over the ranks of a mesh.
 
-Counterpart of ``patchwork_tpu/slam/ba.py`` (the sharded solver belongs to
-the port's ``parallel/``).  K keyframe poses (SE(3)) and L landmarks (3D
-points), observations (k, l, p_local): landmark l seen from keyframe k at
-local coordinates p_local; residual r = T_k^-1 . X_l - p_local.  Gauss-Newton
-normal equations
+Counterpart of ``patchwork_tpu/slam/ba.py``.  K keyframe poses (SE(3))
+and L landmarks (3D points), observations (k, l, p_local): landmark l seen
+from keyframe k at local coordinates p_local; residual r = T_k^-1 . X_l -
+p_local.  Gauss-Newton normal equations
 
     [ A   B ] [dp]   [ba]
     [ B^T C ] [dx] = [bx]
@@ -21,9 +21,12 @@ is a binding of kernel #6 (``kernels/fit_cuda.seg_sum``, which replaces
 ``patchwork_tpu/kernels/seg_pallas.py:74``): one tile plan of its ids per
 :func:`bundle_adjust` call (``fit_cuda.seg_plan``), then one launch of at
 most eight rows per sum over that plan, in one fixed order and with no
-float atomics, so two runs give the same bits.  The JAX package's impl
-names stay: ``"onehot"`` (its accelerator route, the kernel here; the plain
-version on the CPU), ``"sort"`` (its CPU route, a prefix sum over sorted
+float atomics, so two runs give the same bits.
+:func:`bundle_adjust_sharded` keeps that: each rank sums its block of
+observations over its own plans and the ranks' sums are added in rank
+order (``parallel.mesh.ordered_sum``).  The JAX package's impl names stay:
+``"onehot"`` (its accelerator route, the kernel here; the plain version on
+the CPU), ``"sort"`` (its CPU route, a prefix sum over sorted
 observations, kept for parity) and ``"scatter"`` (``index_add_``).
 """
 
@@ -36,9 +39,12 @@ import torch
 
 from ..core.device import resolve_device
 from ..kernels import fit_cuda
+from ..parallel.mesh import axis_index, axis_size, ordered_sum, \
+    replicated_max_diff
 from .se3 import se3_apply, se3_compose, se3_exp, se3_inverse
 
-__all__ = ["BAProblem", "ba_residuals", "bundle_adjust"]
+__all__ = ["BAProblem", "ba_residuals", "bundle_adjust",
+           "bundle_adjust_sharded"]
 
 _F32 = torch.float32
 _CG_CHECK_EVERY = 16   # CG iterations between two reads of the stopping rule
@@ -168,7 +174,7 @@ def _make_seg_sums(idx: torch.Tensor, n: int,
             out = torch.cat([
                 fit_cuda.seg_sum(rows[c0:c0 + 8][None], ids, n, plan=plan)[0]
                 for c0 in range(0, rows.shape[0], 8)])
-            return out.T.reshape((n,) + vals.shape[1:])
+            return out.T.reshape((n,) + vals.shape[1:]).contiguous()
 
         return seg_sum
 
@@ -442,4 +448,78 @@ def bundle_adjust(
                                      jacobian, inv)
         poses = se3_compose(poses, se3_exp(dp))
         points = points + dx
+    return prob._replace(poses=poses, points=points)
+
+
+def _summed_over(seg_sum: Callable, group) -> Callable:
+    """A rank's segment sum, then the ranks' sums added in rank order."""
+    return lambda vals: ordered_sum(seg_sum(vals), group)
+
+
+def bundle_adjust_sharded(
+    prob: BAProblem,
+    mesh,
+    axis: str = "dp",
+    iters: int = 8,
+    damping: float = 1e-4,
+    anchor_weight: float = 1e6,
+    solver: str | None = None,
+    cg_iters: int | None = None,
+    cg_tol: float = 1e-6,
+) -> BAProblem:
+    """Distributed BA (ba.py:452-514 of the JAX package): ``prob``, the same
+    on every rank, has its observations split over the ranks of ``axis``,
+    each rank taking a contiguous block of O/W; every per-observation sum is
+    the rank's sum over its block (kernel #6 over the rank's plans on the
+    card), then :func:`..parallel.mesh.ordered_sum` over the axis; the
+    reduced solve is replicated on every rank.  O must divide by the axis
+    size (pad with obs_w = 0, as ``build_ba_problem`` does).
+
+    solver follows :func:`bundle_adjust`: "dense" sums the explicit blocks
+    (A, B, C, ba, bx), "pcg" every reduction inside the matrix-free CG (a
+    (K, 6) and an (L, 3) block a product), None chooses.  Raises unless the
+    poses and points come out with the same bits on every rank."""
+    k = prob.poses.shape[0]
+    l = prob.points.shape[0]
+    if solver is None:
+        solver = _auto_solver(k, l)
+    if solver not in ("dense", "pcg"):
+        raise ValueError(f"unknown solver {solver!r}")
+    if cg_iters is None:
+        cg_iters = min(max(128, k), 2048)
+    w = axis_size(mesh, axis)
+    group = mesh.get_group(axis)
+    o = prob.obs_k.shape[0]
+    if o % w:
+        raise ValueError(f"{o} observations do not divide over {w} ranks of "
+                         f"{axis!r}: pad with obs_w = 0")
+    lo = axis_index(mesh, axis) * (o // w)
+    hi = lo + o // w
+    block = prob._replace(obs_k=prob.obs_k[lo:hi], obs_l=prob.obs_l[lo:hi],
+                          obs_p=prob.obs_p[lo:hi], obs_w=prob.obs_w[lo:hi])
+    local = _ba_sums(block, k, l)
+    sums = _Sums(_summed_over(local.k, group), _summed_over(local.l, group))
+    if solver == "dense":
+        # the pairs of the whole problem, so every rank's sums line up
+        flat = prob.obs_k.long() * l + prob.obs_l.long()
+        uniq, inv = torch.unique(flat, return_inverse=True)
+        pairs = _make_seg_sums(inv[lo:hi].to(torch.int32), uniq.numel())
+        sums = sums._replace(kl=_summed_over(pairs, group), kl_ids=uniq)
+    poses, points = prob.poses, prob.points
+    for _ in range(iters):
+        if solver == "dense":
+            A, B, C, ba, bx = _partial_normal_eqs(poses, points, block, k, l,
+                                                  sums)
+            dp, dx = _schur_solve(A, B, C, ba, bx, k, l, damping,
+                                  anchor_weight)
+        else:
+            dp, dx = _schur_pcg_step(poses, points, block, k, l, damping,
+                                     anchor_weight, cg_iters, cg_tol, sums)
+        poses = se3_compose(poses, se3_exp(dp))
+        points = points + dx
+    for name, t in (("poses", poses), ("points", points)):
+        diff = replicated_max_diff(t, group)
+        if diff != 0.0:
+            raise RuntimeError(f"bundle_adjust_sharded: the {name} differ "
+                               f"between ranks by {diff}")
     return prob._replace(poses=poses, points=points)

@@ -12,7 +12,8 @@ per-keyframe obstacle samples into a :class:`~.ba.BAProblem`:
    landmarks born for unmatched ones (``io.native.NativeAssociator``, or
    :class:`_BatchedAssociator` without the native library);
 3. the (obs_k, obs_l, p_local) arrays, padded to a multiple, make the
-   problem :func:`refine_with_ba` solves with :func:`.ba.bundle_adjust`.
+   problem :func:`refine_with_ba` solves with :func:`.ba.bundle_adjust`
+   (:func:`.ba.bundle_adjust_sharded` over a mesh).
 
 The host code (association) is a copy of the JAX package's.
 """
@@ -29,7 +30,7 @@ import torch
 from ..core.device import true_div
 from ..io.native import voxel_downsample_host
 from ..kernels import seg_cuda
-from .ba import BAProblem, bundle_adjust
+from .ba import BAProblem, bundle_adjust, bundle_adjust_sharded
 
 try:  # scipy is installed where the port runs; gate it all the same
     from scipy.spatial import cKDTree as _cKDTree
@@ -422,11 +423,14 @@ def build_ba_problem(
 
 
 def refine_with_ba(odo, iters: int = 6, voxel: float = 1.5,
-                   gate: float = 1.0,
+                   gate: float = 1.0, mesh=None,
                    timings: dict | None = None) -> np.ndarray:
     """Run landmark BA over a LidarOdometry's keyframes, on its device;
-    updates and returns the poses.  ``timings`` receives the stage wall
-    times (extract / associate / solve) and the problem's dimensions."""
+    updates and returns the poses.  ``mesh`` (a ``parallel.make_mesh``
+    mesh, every rank calling with the same odometry) switches to
+    :func:`.ba.bundle_adjust_sharded`, the observations padded to a multiple
+    of the mesh's size.  ``timings`` receives the stage wall times (extract
+    / associate / solve) and the problem's dimensions."""
     from .odometry import _sync, stack_frames
 
     dev = odo.device
@@ -450,8 +454,9 @@ def refine_with_ba(odo, iters: int = 6, voxel: float = 1.5,
                                              voxel=voxel)
                         for i in range(len(obst))]
     t1 = time.perf_counter()
-    prob, n_obs = build_ba_problem(np.stack(odo.poses), keyframe_obs,
-                                   gate=gate, device=dev)
+    prob, n_obs = build_ba_problem(
+        np.stack(odo.poses), keyframe_obs, gate=gate,
+        pad_multiple=mesh.size() if mesh is not None else 8, device=dev)
     t2 = time.perf_counter()
     if timings is not None:
         timings.update(
@@ -460,7 +465,10 @@ def refine_with_ba(odo, iters: int = 6, voxel: float = 1.5,
             n_landmarks=int(prob.points.shape[0]), n_obs=int(n_obs))
     if n_obs == 0:
         return np.stack(odo.poses)
-    out = bundle_adjust(prob, iters=iters)
+    if mesh is None:
+        out = bundle_adjust(prob, iters=iters)
+    else:
+        out = bundle_adjust_sharded(prob, mesh, iters=iters)
     poses = out.poses.cpu().numpy()
     _sync(dev)
     if timings is not None:
