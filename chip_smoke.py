@@ -29,7 +29,10 @@ Phases, one line each:
      (Sp 256), mask and every column of the sums bit for bit, beside the
      loop of sweeps on the same input; the order statistic at Sp 128
      (percentile ranks) and Sp 256 (medians) with its kernels per call, and
-     on a skewed input (one node holds two fifths of a scan); the
+     on a skewed input (one node holds two fifths of a scan); its per-round
+     entry (the point-sharded engine's) on the split remap level's medians,
+     whole and in two halves whose histograms are summed after every
+     round, against its plain version and the one-launch kernel; the
      voxel filter's run sums; the segment sum on each route (dense, plan +
      planned, over a binding's plan) and min/max, on binning's sum, level 0's bbox, the generic path's deeper levels
      (split terrain B=8 x 153600) and the wide table's binding, each twice
@@ -93,11 +96,14 @@ Phases, one line each:
      graph worse than odometry, or on a final ATE of SLAM_ATE_MAX or more;
   9. parallel (patchwork_tpu_torch/parallel, bundle_adjust_sharded): (a) in
      this process, a one-rank group over NCCL: make_shardmap_fused (the
-     level path), make_sharded_pipeline (points sharded: the generic path
-     with the kernel segment ops) and make_shardmap_patchwork
-     (PatchworkConfig.patchwork()) on the velodyne and split-terrain
-     batches of phase 4, each mask equal bit for bit to filter_ground_batched
-     with the impl the entry point runs, the counts to the masks' sums;
+     level path), make_sharded_pipeline (the point-sharded engine: the
+     generic path with the kernel segment ops, every per-node statistic
+     reduced over sp, the order statistic by #2's per-round entry) and
+     make_shardmap_patchwork (PatchworkConfig.patchwork()) on the velodyne
+     and split-terrain batches of phase 4, each mask equal bit for bit to
+     filter_ground_batched with the impl the entry point runs, the counts
+     to the masks' sums; the sp engine's ms a batch and its reductions a
+     call;
      bundle_adjust_sharded on phase 8's session problem and a PCG problem
      at BA_SHAPE (MH_BA_ITERS steps) equal bit for bit to bundle_adjust;
      kernels #1, #2, #6, #7 and #8 launched; the explicit engine's segment
@@ -107,15 +113,19 @@ Phases, one line each:
      every bit against their plain versions; the dp engine's time against
      filter_ground_batched's; (b) two processes on the one card over gloo
      (NCCL refuses two ranks on one device), tools/torch_multihost_bench.py
-     --procs 2 on the velodyne batch and the two BA problems: dp over 2,
-     sp over 2, the explicit engine at sp 2, each 0 differing mask bits
-     against the same computation on one process, BA's poses within
+     --procs 2 on the velodyne and split-terrain batches and the two BA
+     problems: dp over 2, sp over 2 (velodyne, velodyne with percentile
+     seeds, split terrain, whose medians must cross the ranks), the
+     explicit engine at sp 2, each 0 differing mask bits against the same
+     computation on one process, each rank's peak memory and device busy
+     time of an sp call, BA's poses within
      the tool's ONE_PROCESS_TOL (1e-4) of bundle_adjust and two runs equal
      bit for bit; each rank's launches per kernel family and times (CUDA
      events) beside the card's name and power limit.
 Then a JSON line per kernel family (launches summed over phases 4, 7, 8
 and 9, phase 9's part (b) as its workers count them; seg_sum's entry
-carries BA's sums) and, last, the device line.  Exits
+carries BA's sums; seg_order_stat_rounds, #2's per-round entry, launches
+in phase 9 only) and, last, the device line.  Exits
 non-zero, and prints no result line, if there is no CUDA device, a build
 fails, or any phase fails.
 """
@@ -606,6 +616,103 @@ def order_stat_checks(dev, fails, inputs) -> dict:
         elif label.startswith("skewed"):
             entry.update({"skewed_ms": ms, "skewed_device_ms": d_ms})
     return entry
+
+
+def rounds_in_parts(fn, a, parts: int):
+    """``fn`` (seg_order_stat or its plain version) with the per-round
+    entry on ``parts`` ranks in threads of this process, each holding a
+    contiguous block of every scan's points, each round's histograms summed
+    over them as ``mesh.all_sum`` sums them over processes: every rank's
+    result."""
+    import threading
+
+    vals, seg, valid, k, s = a
+    n = vals.shape[1]
+    cut = [n * r // parts for r in range(parts + 1)]
+    barrier = threading.Barrier(parts)
+    slots, outs, errors = [None] * parts, [None] * parts, []
+
+    def run(r):
+        def reduce(h):
+            slots[r] = h
+            barrier.wait()
+            total = slots[0].clone()
+            for other in slots[1:]:
+                total += other
+            barrier.wait()
+            return total
+
+        lo, hi = cut[r], cut[r + 1]
+        try:
+            outs[r] = fn(vals[:, lo:hi].contiguous(), seg[:, lo:hi].contiguous(),
+                         valid[:, lo:hi].contiguous(), k, s, reduce=reduce)
+        except Exception as e:   # noqa: BLE001 - reported by the caller
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(parts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return outs
+
+
+def order_stat_rounds_checks(dev, fails, a) -> dict:
+    """Phase 3's checks of #2's per-round entry (seg_order_stat with a
+    ``reduce``), on the split remap level's median inputs with the ranks in
+    range selected: whole and in two halves whose histograms are summed,
+    against its plain version and the one-launch kernel bit for bit; its
+    time by events (whole, ``reduce`` the identity), device time, kernels a
+    call and bound.  Returns its JSON entry."""
+    import torch
+    from patchwork_tpu_torch.kernels import fit_cuda
+
+    vals, seg, valid, k, s = a
+    cnt = torch.stack([torch.bincount(seg[b][valid[b]].long(), minlength=s)[:s]
+                       for b in range(seg.shape[0])])
+    k = torch.where(k.long() < cnt, k, -1).to(torch.int32).contiguous()
+    a = (vals, seg, valid, k, s)
+    used = k >= 0
+
+    def ident(h):
+        return h
+
+    got = fit_cuda.seg_order_stat(*a, reduce=ident)
+    want = fit_cuda.seg_order_stat_plain(*a, reduce=ident)
+    halves = rounds_in_parts(fit_cuda.seg_order_stat, a, 2)
+    halves_plain = rounds_in_parts(fit_cuda.seg_order_stat_plain, a, 2)
+    one_launch = fit_cuda.seg_order_stat(*a)
+    ok = {"whole vs plain": _same_bits(got, want),
+          "halves vs plain halves": all(_same_bits(h, p) for h, p in
+                                        zip(halves, halves_plain)),
+          "halves vs whole": all(_same_bits(h, got) for h in halves),
+          "vs the one-launch kernel": _same_bits(got[used], one_launch[used]),
+          "run twice": _same_bits(got, fit_cuda.seg_order_stat(
+              *a, reduce=ident))}
+    err = max(_abs_err(got, want), max(_abs_err(h, p) for h, p in
+                                        zip(halves, halves_plain)))
+    ms = _time_ms(lambda *x: fit_cuda.seg_order_stat(*x, reduce=ident), a,
+                  {}, 20)
+    plain_ms = _time_ms(lambda *x: fit_cuda.seg_order_stat_plain(
+        *x, reduce=ident), a, {}, 3)
+    d_ms, per_call = _device_ms(
+        lambda: fit_cuda.seg_order_stat(*a, reduce=ident), 20, "pw_os_",
+        count=True)
+    bound = kernel_bound("seg_order_stat", a, {}, got, None)
+    print(f"[3 order stat rounds] split remap level B={vals.shape[0]} "
+          f"N={vals.shape[1]} Sp={s}, {int(used.sum())} segments counted: "
+          f"{ms:.3f} ms a call (device {d_ms}, {per_call:.0f} kernels a "
+          f"call), plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms by "
+          f"{bound[1]}; two halves' histograms summed; {ok}", flush=True)
+    fails.check(all(ok.values()), f"seg_order_stat_rounds: {ok}")
+    fails.check(int(used.sum()) > 0, "seg_order_stat_rounds: no rank in "
+                                     "range")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "device_ms": d_ms,
+            "kernels_per_call": per_call}
 
 
 def run_sum_check(dev, fails) -> None:
@@ -1185,8 +1292,9 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     fails.check(all(on_default), "an entry point built with no device "
                                  f"argument is not on the card: {on_default}")
     for fam, n in front.items():
-        fails.check(n > 0, f"kernel family {fam} never launched by the "
-                           "front ends")
+        # #2's per-round entry serves the point-sharded engine (phase 9)
+        fails.check(n > 0 or fam == "seg_order_stat_rounds",
+                    f"kernel family {fam} never launched by the front ends")
     return front
 
 
@@ -1367,9 +1475,10 @@ def phase8(dev, card: str, fails: Failures) -> tuple:
 
 
 def explicit_binding_checks(fails, label, xyz, valid, cfg) -> None:
-    """The explicit engine's segment ops over one SegOps binding, as
-    shardmap_engine.patchwork_level builds it on a rank's block (xyz
-    (B, n, 3), valid (B, n)): the fit loop's 4- and 6-row sums (#6 over the
+    """The explicit engine's segment ops over one SegOps binding, as the
+    point-sharded generic engine (shardmap_engine.patchwork_level) builds
+    it on a rank's block (xyz (B, n, 3), valid (B, n)): the fit loop's 4-,
+    5- (a changed-point row and the next sums) and 6-row sums (#6 over the
     binding's plan), a per-point gather of a 3-row table (#7) and the
     bounding boxes (#8), each twice against its plain version
     (fit_cuda.seg_sum_plain, torch.gather, seg_cuda.seg_minmax_plain) on
@@ -1394,6 +1503,8 @@ def explicit_binding_checks(fails, label, xyz, valid, cfg) -> None:
     checks = {
         "sum 4 rows": (lambda: ops.sum(m1),
                        fit_cuda.seg_sum_plain(m1, seg, s)),
+        "sum 5 rows": (lambda: ops.sum(torch.cat([g, m1], 1)),
+                       fit_cuda.seg_sum_plain(torch.cat([g, m1], 1), seg, s)),
         "sum 6 rows": (lambda: ops.sum(m2),
                        fit_cuda.seg_sum_plain(m2, seg, s)),
         "gather 3 rows": (lambda: ops.gather(table), torch.gather(
@@ -1475,6 +1586,29 @@ def phase9(dev, card: str, fails: Failures, scenes: dict,
     def bits(a, b) -> int:
         return int((a != b).sum().item())
 
+    def reductions(fn, *args):
+        """Calls of parallel/mesh.py's collective helpers (each a collective
+        at sp > 1; a group of one rank issues none) of one call of fn."""
+        from patchwork_tpu_torch.parallel import mesh as pmesh
+
+        n = [0]
+        gather, reduce = pmesh.all_gather, pmesh._all_reduce
+
+        def rec_gather(t, group):
+            n[0] += 1
+            return gather(t, group)
+
+        def rec_reduce(t, group, op):
+            n[0] += 1
+            return reduce(t, group, op)
+
+        pmesh.all_gather, pmesh._all_reduce = rec_gather, rec_reduce
+        try:
+            fn(*args)
+        finally:
+            pmesh.all_gather, pmesh._all_reduce = gather, reduce
+        return n[0]
+
     cfg, cfg_pw = PatchworkConfig(), PatchworkConfig.patchwork()
     prob_s, kw_s = ba_session
     pcg = mh.synthetic_ba(*BA_SHAPE)
@@ -1509,6 +1643,18 @@ def phase9(dev, card: str, fails: Failures, scenes: dict,
                   f"count errors {cnt_err}", flush=True)
             fails.check(not any(diff.values()) and cnt_err == 0,
                         f"parallel (a) {scene}: {diff}, counts {cnt_err}")
+            # the point-sharded engine: its time against the engine with
+            # the impl it forces, and its reductions a call
+            fn_sp = make_sharded_pipeline(cfg, mesh)
+            n_red = reductions(fn_sp, xyz, valid)
+            ms_sp = _time_ms(fn_sp, (xyz, valid), {}, 3)
+            ms_one = _time_ms(filter_ground_batched, (
+                xyz, valid, cfg.replace(segment_impl="pallas")), {}, 3)
+            print(f"[9 parallel] (a) {scene} sp engine at one rank: "
+                  f"{ms_sp:.3f} ms a batch, filter_ground_batched (pallas) "
+                  f"{ms_one:.3f} ms; {n_red} reductions a call (a "
+                  f"collective each at sp > 1); CUDA events on {card}",
+                  flush=True)
         xyz, valid = scenes["velodyne"]
         half = xyz.shape[1] // 2
         explicit_binding_checks(fails, "whole scans", xyz, valid, cfg_pw)
@@ -1562,14 +1708,16 @@ def phase9(dev, card: str, fails: Failures, scenes: dict,
                               tag="9 parallel", timed=False)
         print(f"[9 parallel] (a) launches in all "
               f"{dict((k, v) for k, v in launches.items() if v)}", flush=True)
-        for fam in ("level", "seg_order_stat", "seg_sum", "seg_gather",
-                    "seg_minmax"):
+        for fam in ("level", "seg_order_stat", "seg_order_stat_rounds",
+                    "seg_sum", "seg_gather", "seg_minmax"):
             fails.check(launches[fam] > 0,
                         f"parallel (a): kernel family {fam} never launched")
         dist.destroy_process_group()
 
         # (b) two processes on the one card, over gloo
-        arrays = {"xyz": xyz.cpu().numpy(), "valid": valid.cpu().numpy()}
+        arrays = {"xyz": xyz.cpu().numpy(), "valid": valid.cpu().numpy(),
+                  "xyz_split": scenes["split"][0].cpu().numpy(),
+                  "valid_split": scenes["split"][1].cpu().numpy()}
         for key in mh.BA_KEYS:
             arrays[f"ba_dense_{key}"] = getattr(prob_s, key).cpu().numpy()
             arrays[f"ba_pcg_{key}"] = pcg[key]
@@ -1603,7 +1751,10 @@ def phase9(dev, card: str, fails: Failures, scenes: dict,
             print(f"[9 parallel] (b) rank {w['rank']} ({w['summary']}): "
                   f"differing mask bits dp {w['dp_bit_errors']}, pipeline "
                   f"{w['pipeline_bit_errors']}, sp ({w['sp_impl']}) "
-                  f"{w['sp_bit_errors']}, explicit {w['explicit_bit_errors']}"
+                  f"{w['sp_bit_errors']}, sp percentile "
+                  f"{w['sp_pct_bit_errors']}, sp split terrain "
+                  f"{w['sp_split_bit_errors']}, explicit "
+                  f"{w['explicit_bit_errors']}"
                   f" (vs the engine {w['explicit_vs_engine_bit_errors']}); "
                   f"BA max |pose diff| dense "
                   f"{w['ba_dense_pose_max_abs_diff']:.3g}, pcg "
@@ -1617,6 +1768,14 @@ def phase9(dev, card: str, fails: Failures, scenes: dict,
                   f"ranks on the card) {w['one_process_scans_per_s']:.1f}; "
                   f"ordered_sum of a CG iteration's two blocks "
                   f"{w['cg_collectives_us']:.1f} us; on {card}", flush=True)
+            print(f"[9 parallel] (b) rank {w['rank']} peak MB (the card's "
+                  f"allocator, this process) {json.dumps(w['peak_mb'])}; "
+                  f"device busy ms of one sp call (torch.profiler) "
+                  f"{json.dumps(w['busy_ms'])}; order statistics across "
+                  f"ranks {json.dumps(w['order_stats'])}", flush=True)
+            fails.check(w["order_stats"]["sp_split"]["median"] > 0,
+                        f"parallel (b) rank {w['rank']}: the split terrain "
+                        "took no median across ranks")
             fails.check(w["ok"], f"parallel (b) rank {w['rank']}: a check "
                                  "failed")
             fails.check(fams.get("level", 0) > 0
@@ -1911,6 +2070,8 @@ def main() -> int:
     stamp("3 level_fit")
     extra["level"] = level_fit_checks(dev, fails, level_fit_inputs)
     extra["seg_order_stat"] = order_stat_checks(dev, fails, order_stat_inputs)
+    rounds_entry = order_stat_rounds_checks(
+        dev, fails, order_stat_inputs["median, split remap level"])
     run_sum_check(dev, fails)
     stamp("3 seg ops")
     seg_entry = seg_op_checks(dev, fails, seg_sums, seg_minmaxes)
@@ -2242,7 +2403,13 @@ def main() -> int:
          "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
          "library_ms": lib_ms[name], **extra.get(name, {})}
-        for name, f, rep in table]}))
+        for name, f, rep in table] + [
+        # #2's per-round entry: the point-sharded engine's order statistic
+        {"name": "seg_order_stat_rounds", "route": "cuda",
+         "source": src + "orderstat.cu",
+         "replaces": "patchwork_tpu/kernels/fit_pallas.py:692",
+         "launches": launches["seg_order_stat_rounds"], "library_ms": None,
+         **rounds_entry}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

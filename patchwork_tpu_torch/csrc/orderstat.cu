@@ -42,6 +42,15 @@
 // over many keys, where the match (a step per distinct key) was measured to
 // cost more than the adds it saves.  Three launches a call, every point read twice and its
 // key five times out of the L2.
+//
+// The per-round entry (pw_os_prepare, pw_os_round, pw_os_final) splits pass 3
+// at its rounds, so that a collective can add the ranks' histograms between
+// them when a scan's points lie on several processes: passes 1 and 2 once,
+// then one launch a round that first selects from the previous round's
+// summed histogram (as pass 3 does in shared memory) and then counts this
+// process's keys into the current interval's 128 buckets, and a last launch
+// that selects from round 5's.  Counts are integers, so whatever order the
+// histograms are added in, every process picks the same key.
 #include "common.cuh"
 
 #define PW_OS_THREADS 256
@@ -289,6 +298,148 @@ __global__ void __launch_bounds__(PW_OS_SEL_THREADS)
     __syncthreads();
   }
   if (t == 0) out[(size_t)b * S + sg] = pw_key_f32(s_lo);
+}
+
+// The select of one round over a summed 128-bucket histogram `hist`
+// (global), by the first 128 threads of the block: the first bucket whose
+// inclusive count exceeds *kw; where none does (k out of range) *kw stays and
+// the interval moves past its end, as in pw_os_select.  Every thread of the
+// block calls it; *lo and *kw are shared.
+__device__ __forceinline__ void pw_os_pick(const int* hist, int r, int* lo,
+                                           int* kw, int* ws) {
+  const int shifts[5] = {25, 18, 11, 4, 0};
+  int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int shift = shifts[r];
+  unsigned lo0 = (unsigned)*lo;
+  int kw0 = *kw;
+  int c = 0, inc = 0;
+  if (t < 128) {
+    c = hist[t];
+    inc = c;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      int m = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += m;
+    }
+    if (lane == 31) ws[warp] = inc;
+  }
+  __syncthreads();
+  if (t < 128) {
+    int before = 0;
+    for (int w = 0; w < warp; ++w) before += ws[w];
+    int cum = before + inc - c;
+    bool hit = cum + c > kw0 && (t == 0 || cum <= kw0);
+    if (t == 0 && ws[0] + ws[1] + ws[2] + ws[3] <= kw0)
+      *lo = (int)(r == 0 ? ((unsigned)(128 - 64) << 25)
+                         : (lo0 + (128u << shift)));
+    if (hit) {
+      *kw = kw0 - cum;
+      *lo = (int)(r == 0 ? ((unsigned)(t - 64) << 25)
+                         : (lo0 + ((unsigned)t << shift)));
+    }
+  }
+  __syncthreads();
+}
+
+// Round r of the per-round entry, a block per selected segment m: sel (M,)
+// holds b * S + s of the segments counted, the same on every process; state
+// (M, 2) [lo, kw]; hist_in (M, 128) round r - 1's summed histogram (r > 0);
+// hist_out (M, 128) this process's counts of round r.
+__global__ void __launch_bounds__(PW_OS_SEL_THREADS)
+    pw_os_round(const int* __restrict__ keys, const int* __restrict__ cnt,
+                const int* __restrict__ first, const int* __restrict__ sel,
+                const int* __restrict__ k, const int* __restrict__ hist_in,
+                int* __restrict__ state, int* __restrict__ hist_out, int N,
+                int S, int r) {
+  __shared__ int hist[128];
+  __shared__ int ws[4];
+  __shared__ int s_kw, s_lo;
+  constexpr int T = PW_OS_SEL_THREADS, L = PW_OS_SEL_LOADS;
+  const int shifts[5] = {25, 18, 11, 4, 0};
+  int m = blockIdx.x, t = threadIdx.x;
+  int bs = sel[m];
+  if (t == 0) {
+    s_lo = r == 0 ? 0 : state[2 * m];
+    s_kw = r == 0 ? k[bs] : state[2 * m + 1];
+  }
+  if (t < 128) hist[t] = 0;
+  __syncthreads();
+  if (r > 0) pw_os_pick(hist_in + (size_t)m * 128, r - 1, &s_lo, &s_kw, ws);
+  if (t == 0) {
+    state[2 * m] = s_lo;
+    state[2 * m + 1] = s_kw;
+  }
+  int shift = shifts[r];
+  unsigned lo = (unsigned)s_lo;
+  int n = cnt[bs];
+  const int* mine = keys + (size_t)(bs / S) * N + first[bs];
+  for (int i0 = 0; i0 < n; i0 += L * T) {
+    int key[L];
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      int i = i0 + q * T + t;
+      key[q] = i < n ? mine[i] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      if (i0 + q * T < n) {     // the same for the whole block
+        int i = i0 + q * T + t;
+        int bkt = i < n ? pw_os_bucket(key[q], r == 0, lo, shift) : -1;
+        if (r == 0) pw_warp_add(hist, bkt);
+        else pw_hist_add(hist, bkt);
+      }
+    }
+  }
+  __syncthreads();
+  if (t < 128) hist_out[(size_t)m * 128 + t] = hist[t];
+}
+
+// The last select, from round 5's summed histogram: out[sel[m]] is the key's
+// value.
+__global__ void __launch_bounds__(128)
+    pw_os_final(const int* __restrict__ sel, const int* __restrict__ hist_in,
+                const int* __restrict__ state, float* __restrict__ out) {
+  __shared__ int ws[4];
+  __shared__ int s_kw, s_lo;
+  int m = blockIdx.x;
+  if (threadIdx.x == 0) {
+    s_lo = state[2 * m];
+    s_kw = state[2 * m + 1];
+  }
+  __syncthreads();
+  pw_os_pick(hist_in + (size_t)m * 128, 4, &s_lo, &s_kw, ws);
+  if (threadIdx.x == 0) out[sel[m]] = pw_key_f32(s_lo);
+}
+
+// Passes 1 and 2 of the per-round entry: cnt and cursor (B, S) zeroed by
+// the caller; first (B, S) and keys (B, N) out.
+PW_EXPORT int pw_os_prepare(const float* vals, const int* seg,
+                            const unsigned char* valid, int* cnt, int* cursor,
+                            int* first, int* keys, int B, int N, int S,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid((N + PW_OS_CHUNK - 1) / PW_OS_CHUNK, B);
+  pw_os_count<<<grid, PW_OS_THREADS, S * sizeof(int), st>>>(seg, valid, cnt,
+                                                            N, S);
+  pw_os_scatter<<<grid, PW_OS_THREADS, 2 * S * sizeof(int), st>>>(
+      vals, seg, valid, cnt, cursor, first, keys, N, S);
+  return (int)cudaGetLastError();
+}
+
+PW_EXPORT int pw_os_round_launch(const int* keys, const int* cnt,
+                                 const int* first, const int* sel, const int* k,
+                                 const int* hist_in, int* state, int* hist_out,
+                                 int M, int N, int S, int r, void* stream) {
+  pw_os_round<<<M, PW_OS_SEL_THREADS, 0, (cudaStream_t)stream>>>(
+      keys, cnt, first, sel, k, hist_in, state, hist_out, N, S, r);
+  return (int)cudaGetLastError();
+}
+
+PW_EXPORT int pw_os_final_launch(const int* sel, const int* hist_in,
+                                 const int* state, float* out, int M,
+                                 void* stream) {
+  pw_os_final<<<M, 128, 0, (cudaStream_t)stream>>>(sel, hist_in, state, out);
+  return (int)cudaGetLastError();
 }
 
 // cnt and cursor (B, S) are zeroed by the caller; first (B, S) and keys

@@ -41,6 +41,9 @@ _F = ctypes.c_float
 # C entry point -> argument types (pointers and the stream are void*)
 _SIGNATURES = {
     "pw_seg_order_stat": [_VP] * 9 + [_I, _I, _I, _VP],
+    "pw_os_prepare": [_VP] * 7 + [_I, _I, _I, _VP],
+    "pw_os_round_launch": [_VP] * 8 + [_I] * 4 + [_VP],
+    "pw_os_final_launch": [_VP] * 4 + [_I, _VP],
     "pw_seg_sum": [_VP] * 5 + [_I] * 4 + [_VP],
     "pw_seg_sum_planned": [_VP] * 10 + [_I] * 5 + [_VP],
     "pw_sweep_plan": [_VP] * 8 + [_I] * 6 + [_VP],

@@ -49,11 +49,13 @@ import types
 import torch
 
 from ..core.device import true_div
-from ..segment.segops import SegOps, flatten_batch, sort_by_segment
+from ..segment.segops import (SegOps, f32_key, flatten_batch, key_f32,
+                              sort_by_segment)
 
 __all__ = [
     "TILE", "sp_width", "LAUNCHES", "reset_launches", "plain",
-    "seg_order_stat", "seg_sum", "SweepPlan", "sweep_plan", "seg_plan",
+    "seg_order_stat", "seg_order_stat_rounds_plain", "seg_sum", "SweepPlan",
+    "sweep_plan", "seg_plan",
     "apply_sweep",
     "moments2_sweep", "remap_r1", "remap_r1b", "remap_nodes", "remap_points",
     "node_stats",
@@ -71,7 +73,8 @@ _OS_SMEM_LIMIT = 48 * 1024       # bytes of one order-stat block's counters
 _SMEM_OPTIN_H100 = 232448        # bytes a block may ask for on an H100
 
 
-LAUNCHES = {"seg_order_stat": 0, "apply_sweep": 0, "moments2_sweep": 0,
+LAUNCHES = {"seg_order_stat": 0, "seg_order_stat_rounds": 0,
+            "apply_sweep": 0, "moments2_sweep": 0,
             "level": 0, "seg_sum": 0, "fit_level": 0, "seg_gather": 0,
             "seg_minmax": 0, "sweep_plan": 0, "seg_plan": 0, "run_sum": 0}
 
@@ -207,8 +210,73 @@ def _live(state: torch.Tensor, trash: int):
 # seg_order_stat  (fit_pallas.py:691-731 seg_order_stat -> _orderstat_kernel)
 # ---------------------------------------------------------------------------
 
-def seg_order_stat_plain(vals, seg, valid, k, num_segs):
-    """Exact per-segment k-th smallest value, by a (segment, key) sort."""
+_OS_SHIFTS = (25, 18, 11, 4, 0)   # key bits resolved a round: 7, 4 last
+
+
+def _os_pick(hist, r, lo, kw):
+    """The select of round ``r`` over summed (M, 128) int32 histograms:
+    the first bucket whose inclusive count exceeds kw (128 where none
+    does); returns the new (lo, kw), lo an unsigned 32-bit key in int64."""
+    cum = torch.cumsum(hist.to(torch.int64), 1)
+    j = (cum <= kw[:, None]).sum(1)
+    jc = torch.clamp(j, max=127)[:, None]
+    below = (cum.gather(1, jc) - hist.to(torch.int64).gather(1, jc))[:, 0]
+    kw = kw - torch.where(j < 128, below, torch.zeros_like(below))
+    if r == 0:
+        lo = ((j - 64) << 25) & 0xFFFFFFFF
+    else:
+        lo = (lo + (j << _OS_SHIFTS[r])) & 0xFFFFFFFF
+    return lo, kw
+
+
+def _os_signed(lo: torch.Tensor) -> torch.Tensor:
+    """An unsigned 32-bit key held in int64 -> its int32 value."""
+    return torch.where(lo >= 2 ** 31, lo - 2 ** 32, lo)
+
+
+def seg_order_stat_rounds_plain(vals, seg, valid, k, num_segs, reduce):
+    """The per-round entry's plain version: the five histogram rounds of
+    ``_orderstat_rounds`` over the segments with k >= 0, ``reduce`` applied
+    to every round's (M, 128) int32 histogram before its select; 0.0 for
+    the other segments."""
+    b, n = vals.shape
+    sel = (k.reshape(-1) >= 0).nonzero()[:, 0]
+    m = sel.numel()
+    out = torch.zeros(b * num_segs, dtype=torch.float32, device=vals.device)
+    if m == 0:
+        return out.reshape(b, num_segs)
+    slot_of = torch.full((b * num_segs,), -1, dtype=torch.int64,
+                         device=vals.device)
+    slot_of[sel] = torch.arange(m, device=vals.device)
+    seg64 = seg.to(torch.int64)
+    inside = valid & (seg64 >= 0) & (seg64 < num_segs)
+    flat = flatten_batch(torch.where(inside, seg64, 0), num_segs)
+    slot = torch.where(inside.reshape(-1), slot_of[flat], -1)
+    mine = slot >= 0
+    key = f32_key(vals).reshape(-1)[mine].to(torch.int64)
+    slot = slot[mine]
+    lo = torch.zeros(m, dtype=torch.int64, device=vals.device)
+    kw = k.reshape(-1)[sel].to(torch.int64)
+    for r, shift in enumerate(_OS_SHIFTS):
+        if r == 0:
+            bkt, ok = (key >> 25) + 64, torch.ones_like(key, dtype=torch.bool)
+        else:
+            d = key - _os_signed(lo)[slot]
+            ok = (d >= 0) & (d < (128 << shift))
+            bkt = d >> shift
+        hist = torch.bincount((slot * 128 + bkt)[ok], minlength=m * 128)
+        hist = reduce(hist.to(torch.int32).reshape(m, 128))
+        lo, kw = _os_pick(hist, r, lo, kw)
+    out[sel] = key_f32(_os_signed(lo).to(torch.int32))
+    return out.reshape(b, num_segs)
+
+
+def seg_order_stat_plain(vals, seg, valid, k, num_segs, reduce=None):
+    """Exact per-segment k-th smallest value, by a (segment, key) sort; with
+    ``reduce``, :func:`seg_order_stat_rounds_plain`."""
+    if reduce is not None:
+        return seg_order_stat_rounds_plain(vals, seg, valid, k, num_segs,
+                                           reduce)
     b, n = vals.shape
     flat = flatten_batch(seg, num_segs)
     flat = torch.where(valid.reshape(-1), flat,
@@ -218,7 +286,8 @@ def seg_order_stat_plain(vals, seg, valid, k, num_segs):
 
 
 def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
-                   k: torch.Tensor, num_segs: int) -> torch.Tensor:
+                   k: torch.Tensor, num_segs: int,
+                   reduce=None) -> torch.Tensor:
     """Exact per-segment k-th smallest value, ``sorted(vals of seg)[k]``.
 
     vals (B, N) f32, seg (B, N) int32 in [0, num_segs), valid (B, N) bool,
@@ -234,9 +303,19 @@ def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
     launch between the rounds.  Counts are integers, so the result is
     exact.  Bound by the latency of the passes, not by its 9 bytes a point:
     every point is read twice and its key five times out of the L2.
+
+    ``reduce``: the per-round entry, for a scan whose points lie on several
+    processes.  A callable applied to every round's (M, 128) int32
+    histogram of the M segments with k >= 0 (every process passes the same
+    k, read from reduced counts): an ``all_reduce`` of SUM over the
+    processes.  Passes 1 and 2 once, then a launch a round that selects
+    from the previous round's reduced histogram and counts this process's
+    keys into the current 128 buckets, and a last select: seven launches
+    (``LAUNCHES["seg_order_stat_rounds"]``).  The other segments return
+    0.0.  Its plain version is :func:`seg_order_stat_rounds_plain`.
     """
     if not _on_card(vals, seg, valid, k):
-        return seg_order_stat_plain(vals, seg, valid, k, num_segs)
+        return seg_order_stat_plain(vals, seg, valid, k, num_segs, reduce)
     _f32(vals)
     if seg.dtype != torch.int32 or k.dtype != torch.int32:
         raise TypeError("seg and k must be int32")
@@ -247,6 +326,8 @@ def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
         raise ValueError("seg_order_stat: shape mismatch")
     if 2 * num_segs * 4 > _OS_SMEM_LIMIT:
         raise ValueError(f"num_segs={num_segs} exceeds the shared counters")
+    if reduce is not None:
+        return _seg_order_stat_rounds(vals, seg, valid, k, num_segs, reduce)
     out = torch.empty((b, num_segs), dtype=torch.float32, device=vals.device)
     # per segment: its count, what of its range is taken, where it starts
     work = torch.zeros((3, b, num_segs), dtype=torch.int32,
@@ -255,6 +336,33 @@ def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
     _launch("seg_order_stat", "pw_seg_order_stat",
             (vals, seg, valid, k, out, work[0], work[1], work[2], keys), b, n,
             num_segs)
+    return out
+
+
+def _seg_order_stat_rounds(vals, seg, valid, k, num_segs, reduce):
+    """The per-round entry on the card (see :func:`seg_order_stat`)."""
+    b, n = vals.shape
+    dev = vals.device
+    sel = (k.reshape(-1) >= 0).nonzero()[:, 0].to(torch.int32)
+    m = sel.numel()
+    out = torch.zeros((b, num_segs), dtype=torch.float32, device=dev)
+    if m == 0:
+        return out
+    work = torch.zeros((3, b, num_segs), dtype=torch.int32, device=dev)
+    keys = torch.empty((b, n), dtype=torch.int32, device=dev)
+    _launch("seg_order_stat_rounds", "pw_os_prepare",
+            (vals, seg, valid, work[0], work[1], work[2], keys), b, n,
+            num_segs)
+    state = torch.empty((m, 2), dtype=torch.int32, device=dev)
+    hist = None
+    for r in range(len(_OS_SHIFTS)):
+        local = torch.empty((m, 128), dtype=torch.int32, device=dev)
+        _launch("seg_order_stat_rounds", "pw_os_round_launch",
+                (keys, work[0], work[2], sel, k, hist, state, local), m, n,
+                num_segs, r)
+        hist = reduce(local).contiguous()
+    _launch("seg_order_stat_rounds", "pw_os_final_launch",
+            (sel, hist, state, out), m)
     return out
 
 

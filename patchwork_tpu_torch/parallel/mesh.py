@@ -9,13 +9,14 @@ scans split over ``dp``, the points of a scan over ``sp``.  The engines
 issue their own collectives, all of them through this module:
 
 * :func:`ordered_sum`: an ``all_gather`` of the partials, then their sum in
-  rank order.  ``all_reduce(SUM)`` is not used: neither NCCL nor gloo
-  promises an order of addition, and every rank has to hold the same bits,
-  because loop counts (the explicit engine's fit loop, bundle adjustment's
+  rank order.  ``all_reduce(SUM)`` is not used on floats: neither NCCL nor
+  gloo promises an order of addition, and every rank has to hold the same
+  bits, because loop counts (the engines' fit loops, bundle adjustment's
   CG) are read from reduced values and a rank that ran one collective fewer
   would hang the group;
 * :func:`all_min` / :func:`all_max`: ``all_reduce`` of MIN / MAX, exact in
-  any order;
+  any order, and :func:`all_sum`, ``all_reduce`` of SUM on integers (the
+  order statistic's histograms), exact in any order too;
 * :func:`all_gather`, and through it the layouts' ``join``.
 
 ``group=None`` in these helpers means this process alone, which is how an
@@ -39,7 +40,7 @@ from ..core.device import resolve_device
 
 __all__ = ["DATA_AXIS", "POINT_AXIS", "make_mesh", "axis_index",
            "axis_size", "BatchLayout", "scan_batch_sharding", "replicated",
-           "all_gather", "ordered_sum", "all_min", "all_max",
+           "all_gather", "ordered_sum", "all_sum", "all_min", "all_max",
            "replicated_max_diff"]
 
 DATA_AXIS = "dp"
@@ -129,6 +130,14 @@ def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
     buf = out.cpu() if host else out
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device) if host else buf
+
+
+def all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise SUM over the group's ranks, for integer tensors only
+    (exact in any order; floats cross by :func:`ordered_sum`)."""
+    if t.is_floating_point():
+        raise TypeError("all_sum takes integers; sum floats by ordered_sum")
+    return _all_reduce(t, group, dist.ReduceOp.SUM)
 
 
 def all_min(t: torch.Tensor, group) -> torch.Tensor:

@@ -13,14 +13,20 @@ takes the global batch, identical on every rank, and returns the global
 * **Points sharded** (:func:`make_sharded_filter_ground` and
   :func:`make_sharded_pipeline` with ``shard_points``): the JAX package has
   XLA's partitioner split the engine's segment ops over sp
-  (sharded.py:79-109).  PyTorch has no such partitioner, so the sp group
-  ``all_gather``s each scan's shards, every rank of it runs the generic
-  path on the whole scan with the segment impl forced as sharded.py:100-102
-  forces it, and each keeps its own slice.  The masks are the JAX
-  package's; the work is repeated on every sp rank.  The engine that would
-  not repeat it, point-sharded levels whose percentile and median order
-  statistics all-reduce kernel #2's histogram rounds, is queued
-  (ROADMAP.md).
+  (sharded.py:79-109), with per-node arrays replicated and O(nodes)
+  collective traffic a step.  PyTorch has no partitioner, so the port does
+  the same by hand: each rank takes its (B/dp, N/sp) block of the batch and
+  runs binning and the generic levels on those points alone, with the
+  segment impl forced as sharded.py:100-102 forces it.  Every per-node
+  statistic is the rank's partial, reduced over the sp group through a
+  ``segops.Ranks`` bound to it: sums and counts by ``mesh.ordered_sum`` (the
+  same bits on every rank), bounding boxes and the deficient fallback's
+  (z, global index) minima by MIN, and the split median and percentile
+  seeds by kernel #2's per-round entry, each of its five histogram rounds
+  summed over sp (``mesh.all_sum``; integer counts, so the same key on every
+  rank).  Every branch and loop bound is read from reduced values.  What
+  crosses between ranks is per-node blocks, never points; the one
+  per-point collective is the final join of the masks.
 
 The forced impl: the JAX package takes ``segment_impl`` or its
 ``default_impl(gspmd=True)``, "onehot" on a TPU and "scatter" elsewhere
@@ -41,8 +47,8 @@ import torch
 from ..core.config import PatchworkConfig
 from ..core.types import GroundResult
 from ..segment.engine import filter_ground_batched
-from ..segment.segops import default_impl
-from .mesh import POINT_AXIS, all_gather, axis_index, scan_batch_sharding
+from ..segment.segops import Ranks, default_impl
+from .mesh import POINT_AXIS, axis_index, scan_batch_sharding
 
 __all__ = ["make_sharded_filter_ground", "make_sharded_pipeline",
            "make_shardmap_fused", "point_sharded_impl"]
@@ -90,24 +96,19 @@ def _sharded(cfg: PatchworkConfig, mesh, shard_points: bool,
              with_counts: bool, impl: Optional[str] = None):
     """Cut the batch, run ``filter_ground_batched`` on this rank's block
     with segment impl ``impl`` (None: :func:`point_sharded_impl` by the
-    batch's device), join the masks.  With ``shard_points`` the sp group
-    first gathers each scan's shards and each rank keeps its slice."""
+    batch's device), join the masks.  With ``shard_points`` the block holds
+    N/sp points of each scan and every per-node statistic crosses the sp
+    group (module docstring)."""
     layout = scan_batch_sharding(mesh, shard_points)
+    group = mesh.get_group(POINT_AXIS) if shard_points else None
     j = axis_index(mesh, POINT_AXIS)
 
     def fn(xyz: torch.Tensor, valid: torch.Tensor):
         xb, vb = layout.cut(xyz), layout.cut(valid)
-        n = xb.shape[1]
-        if shard_points:
-            # the scan's shards back together over sp
-            group = mesh.get_group(POINT_AXIS)
-            xb = torch.cat(all_gather(xb, group), 1)
-            vb = torch.cat(all_gather(vb, group), 1)
+        ranks = Ranks(group, j * xb.shape[1]) if shard_points else None
         res = filter_ground_batched(xb, vb, cfg.replace(
-            segment_impl=impl or point_sharded_impl(cfg, xyz.device)))
-        if shard_points:
-            res = GroundResult(*(m[:, j * n:(j + 1) * n] for m in (
-                res.ground, res.valid, res.in_zone, res.in_patch)))
+            segment_impl=impl or point_sharded_impl(cfg, xyz.device)),
+            ranks=ranks)
         res = _join_masks(layout.join, res)
         return (res, *_counts(res)) if with_counts else res
 

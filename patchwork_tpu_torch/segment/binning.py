@@ -88,10 +88,13 @@ def bin_points(xyz: torch.Tensor, valid: torch.Tensor, cfg: PatchworkConfig):
 
 
 def assign_patches(xyz: torch.Tensor, valid: torch.Tensor,
-                   cfg: PatchworkConfig, plain: bool = False) -> PatchAssignment:
+                   cfg: PatchworkConfig, plain: bool = False,
+                   ranks=None) -> PatchAssignment:
     """Patch id ring*num_sectors+sector of every point of (B, N, 3) scans.
 
-    ``plain=True`` takes the segment sum's plain version on any device."""
+    ``plain=True`` takes the segment sum's plain version on any device;
+    ``ranks`` (segops.Ranks) sums the per-patch distances over the
+    processes that hold the scans' other points."""
     num_p = cfg.num_patches
     patch, in_patch, in_zone, fin, d = bin_points(xyz, valid, cfg)
 
@@ -101,6 +104,8 @@ def assign_patches(xyz: torch.Tensor, valid: torch.Tensor,
     w = in_patch.to(torch.float32)
     k = fit_cuda.plain if plain else fit_cuda
     sums = k.seg_sum(torch.stack([d * w, w], 1), patch, num_p + 1)
+    if ranks is not None:
+        sums = ranks.sum(sums)
     mean_dist = sums[:, 0] / torch.clamp(sums[:, 1], min=1.0)
     rel_dist = true_div(mean_dist, cfg.filtering_radius)
     return PatchAssignment(patch, in_patch, in_zone, fin, d, rel_dist)

@@ -52,7 +52,7 @@ from ..core.types import GroundResult
 from ..kernels import fit_cuda
 from ..kernels.fit_cuda import TILE, sp_width
 from .binning import assign_patches
-from .segops import IMPLS, SegOps, default_impl, flatten_batch, sort_by_segment
+from .segops import IMPLS, Ranks, SegOps, default_impl
 
 __all__ = ["level", "level_reference", "filter_ground",
            "filter_ground_batched", "make_filter_ground",
@@ -307,23 +307,59 @@ def _cov_normal(m2: torch.Tensor, gcnt: torch.Tensor) -> torch.Tensor:
     return torch.stack(fit_cuda._normal_rows(m2, gcnt), 1)
 
 
-def _fit_step(ops: SegOps, xyz: torch.Tensor, gmask: torch.Tensor):
-    """One batched masked PCA fit (engine.py:85-108): xyz (B, 3, N), gmask
-    (B, N) -> (gcnt (B, S), dist (B, N)), each point's distance to its own
-    segment's plane.  Two segment passes, sums then centered products."""
-    g = gmask.to(torch.float32)
-    m1 = ops.sum(torch.cat([g[:, None], xyz * g[:, None]], 1))
+def _plane_dist(ops: SegOps, ranks: Ranks, xyz: torch.Tensor,
+                g: torch.Tensor, m1: torch.Tensor) -> torch.Tensor:
+    """Each point's distance to its own node's plane (engine.py:85-108),
+    from the mask ``g`` (B, N) float and its sums ``m1`` (B, 4, S) rows
+    [gcnt, Σx, Σy, Σz]: the centered products' pass, then the plane."""
     gcnt = m1[:, 0]
     d_all = xyz - ops.gather(m1[:, 1:4] / torch.clamp(gcnt[:, None], min=1.0))
     d = d_all * g[:, None]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    m2 = ops.sum(torch.stack([dx * dx, dx * dy, dx * dz, dy * dy, dy * dz,
-                              dz * dz], 1))
+    m2 = ranks.sum(ops.sum(torch.stack([dx * dx, dx * dy, dx * dz, dy * dy,
+                                        dy * dz, dz * dz], 1)))
     n_pt = ops.gather(_cov_normal(m2, gcnt))
     # the sweeps' expression, so every path computes the same bits
-    dist = torch.abs(d_all[:, 0] * n_pt[:, 0] + d_all[:, 1] * n_pt[:, 1]
+    return torch.abs(d_all[:, 0] * n_pt[:, 0] + d_all[:, 1] * n_pt[:, 1]
                      + d_all[:, 2] * n_pt[:, 2])
-    return gcnt, dist
+
+
+def _fit_rows(g: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """The rows [g, x g, y g, z g] of a mask's first sums."""
+    return torch.cat([g[:, None], xyz * g[:, None]], 1)
+
+
+def _generic_fit(cfg, ops, ranks, xyz, ground, active, fit_pt, tau_pt,
+                 resid):
+    """The batched iterative plane fit (cpp:186-217; the generic ``_body``
+    of engine.py:449-465) and, with ``resid``, the final fit's residual
+    (cpp:219-228).  Returns (ground, resid (B, S) or None).
+
+    Each iteration's changed points ride as one more row of the next
+    iteration's first sums, so an iteration reduces twice, and the sums of
+    the last mask are those of the final fit; the loop ends when that row
+    sums to 0 or at ``max_iter``, as the JAX while-loop."""
+    g = (ground & active).to(torch.float32)
+    m1 = ranks.sum(ops.sum(_fit_rows(g, xyz)))
+    for _ in range(cfg.max_iter):
+        dist = _plane_dist(ops, ranks, xyz, g, m1)
+        can_pt = ops.gather((m1[:, 0] >= 3.0).to(torch.float32)) > 0.5
+        new_g = dist < tau_pt
+        apply_pt = active & fit_pt & can_pt
+        changed = (apply_pt & (new_g != ground)).to(torch.float32)
+        ground = torch.where(apply_pt, new_g, ground)
+        g = (ground & active).to(torch.float32)
+        m1c = ranks.sum(ops.sum(torch.cat([changed[:, None],
+                                           _fit_rows(g, xyz)], 1)))
+        m1 = m1c[:, 1:]
+        if not bool((m1c[:, 0] > 0.0).any()):
+            break
+    if not resid:
+        return ground, None
+    gcnt = m1[:, 0]
+    dist = _plane_dist(ops, ranks, xyz, g, m1)
+    r = ranks.sum(ops.sum(dist * g)) / torch.clamp(gcnt, min=1.0)
+    return ground, torch.where(gcnt >= 3.0, r, torch.full_like(r, math.inf))
 
 
 def _pad_sp(v: torch.Tensor, sp: int) -> torch.Tensor:
@@ -388,11 +424,13 @@ def _ops_impl(impl: str) -> str:
 
 
 def _level_body(cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, num_segs,
-                is_level0, node, node_patch, done, ground, plain):
+                is_level0, node, node_patch, done, ground, plain, ranks):
     """Stats -> early-outs -> seeds -> iterative fit -> split flags for one
     level of every active node (engine.py:318-490); split execution is
     :func:`_child_remap`.  xyz (B, 3, N); node (B, N) int64; node_patch
-    (B, S) or None at level 0.  Returns (done, ground, split (B, S) bool).
+    (B, S) or None at level 0.  Every per-node statistic is this process's
+    partial reduced through ``ranks`` (segops.Ranks).  Returns (done,
+    ground, split (B, S) bool).
     """
     b, _, n = xyz.shape
     z = xyz[:, 2]
@@ -407,49 +445,54 @@ def _level_body(cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, num_segs,
     seg = torch.where(active, node, trash)
     ops = SegOps(seg, num_segs, _ops_impl(impl), plain=plain)
     real = torch.arange(num_segs, device=dev) < trash
+    mins, maxs = ranks.bbox(*ops.bbox(xyz, active))
+
+    def early_outs(cnt, seed_cnt):
+        return fit_cuda.early_out_masks(
+            cnt.to(torch.float32), seed_cnt.to(torch.float32), mins, maxs,
+            real, is_level0, _f32(cfg.flat_area_m2), _f32(cfg.flat_dz),
+            cfg.flat_min_points, cfg.min_seed_points)
 
     # ---- stats + seed candidates ----
     if cfg.adaptive_seed_height:
         tg = ops.gather(torch.stack([zth_node, tau_node], 1))
         zth_pt, tau_pt = tg[:, 0], tg[:, 1]
         seed = active & (z < zth_pt)
-        cnts = ops.sum(torch.stack([active.to(torch.float32),
-                                    seed.to(torch.float32)], 1))
+        cnts = ranks.sum(ops.sum(torch.stack([active.to(torch.float32),
+                                              seed.to(torch.float32)], 1)))
         cnt_i = cnts[:, 0].to(torch.int32)
         seed_cnt = cnts[:, 1].to(torch.int32)
     else:
-        sortz = sort_by_segment(flatten_batch(seg, num_segs), z.reshape(-1),
-                                b * num_segs)
-        cnt_i = ops.count(active)
+        cnt_i = ranks.sum(ops.count(active))
         k10 = (_f32(cfg.seed_percentile) * cnt_i.to(torch.float32)).to(
             torch.int32)
-        z_th = sortz.order_stat(k10.reshape(-1)).reshape(b, num_segs) \
+        # only fitting nodes read their threshold (fit needs no seed count)
+        z_th = ranks.order_stat(seg, z, active, k10, num_segs,
+                                early_outs(cnt_i, cnt_i)[2], "percentile") \
             + _f32(cfg.th_seeds)
         tg = ops.gather(torch.stack([z_th, tau_node], 1))
         zth_pt, tau_pt = tg[:, 0], tg[:, 1]
         seed = active & (z < zth_pt)
-        seed_cnt = ops.count(seed)
-    mins, maxs = ops.bbox(xyz, active)
+        seed_cnt = ranks.sum(ops.count(seed))
 
     # ---- early-outs, in reference order (cpp:111-140) ----
-    finished, label, fit_node, deficient = fit_cuda.early_out_masks(
-        cnt_i.to(torch.float32), seed_cnt.to(torch.float32), mins, maxs, real,
-        is_level0, _f32(cfg.flat_area_m2), _f32(cfg.flat_dz),
-        cfg.flat_min_points, cfg.min_seed_points)
+    finished, label, fit_node, deficient = early_outs(cnt_i, seed_cnt)
     t1 = ops.gather(torch.stack([finished, label, fit_node, deficient],
                                 1).to(torch.float32)) > 0.5
     finished_pt, label_pt, fit_pt, deficient_pt = t1.unbind(1)
 
-    # ---- "min_seed_points lowest-z points" of deficient nodes (cpp:171-182)
+    # ---- "min_seed_points lowest-z points" of deficient nodes (cpp:171-182),
+    # by (z, global index)
     if bool(deficient.any()):
-        idx_f = torch.arange(n, dtype=torch.float32, device=dev).expand(b, -1)
+        idx_f = float(ranks.first) + torch.arange(
+            n, dtype=torch.float32, device=dev).expand(b, -1)
         chosen = torch.zeros_like(seed)
         for _ in range(cfg.min_seed_points):
             cand = active & deficient_pt & ~chosen
-            m = ops.min(z, cand)
+            m = ranks.min(ops.min(z, cand))
             m_pt = ops.gather(torch.where(torch.isfinite(m), m, _BIG))
             is_min = cand & (z == m_pt)
-            mi = ops.min(idx_f, is_min)
+            mi = ranks.min(ops.min(idx_f, is_min))
             mi_pt = ops.gather(torch.where(torch.isfinite(mi), mi, _BIG))
             chosen = chosen | (is_min & (idx_f == mi_pt))
         seed = torch.where(deficient_pt, chosen, seed)
@@ -460,45 +503,37 @@ def _level_body(cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, num_segs,
     ground = torch.where(active & fit_pt, seed, ground)
     done = done | (active & finished_pt)
 
-    # ---- iterative plane fitting (cpp:186-217), residual (cpp:219-228) ----
+    # ---- iterative plane fitting (cpp:186-217), residual (cpp:219-228);
+    # no residual where no node may split ----
+    depth_ok = lvl < min(cfg.max_split_depth, cfg.effective_levels - 1)
     if impl == "fused":
-        ground, gcnt, resid = _fused_fit_resid(
+        ground, _, resid = _fused_fit_resid(
             cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
             fit_node, num_segs, plain)
     else:
-        for _ in range(cfg.max_iter):
-            gcnt, dist = _fit_step(ops, xyz, ground & active)
-            can_pt = ops.gather((gcnt >= 3.0).to(torch.float32)) > 0.5
-            new_g = dist < tau_pt
-            apply_pt = active & fit_pt & can_pt
-            changed = bool((apply_pt & (new_g != ground)).any())
-            ground = torch.where(apply_pt, new_g, ground)
-            if not changed:
-                break
-        g_final = ground & active
-        gcnt, dist = _fit_step(ops, xyz, g_final)
-        resid = ops.sum(dist * g_final.to(torch.float32)) \
-            / torch.clamp(gcnt, min=1.0)
-        resid = torch.where(gcnt >= 3.0, resid,
-                            torch.full_like(resid, math.inf))
+        ground, resid = _generic_fit(cfg, ops, ranks, xyz, ground, active,
+                                     fit_pt, tau_pt, depth_ok)
 
     # ---- split decision (cpp:231-235) ----
     split_thresh = _F32(cfg.th_dist) * (
         _F32(1.0) + _F32(cfg.split_residual_slope) * _F32(lvl))
     min_sz = cfg.split_min_points_base + cfg.split_min_points_slope * lvl
-    depth_ok = lvl < min(cfg.max_split_depth, cfg.effective_levels - 1)
-    split = (fit_node & (resid > float(split_thresh)) & (cnt_i >= min_sz)
-             & depth_ok)
+    if depth_ok:
+        split = fit_node & (resid > float(split_thresh)) & (cnt_i >= min_sz)
+    else:
+        split = torch.zeros_like(fit_node)
     # fitting nodes that do not split are finished with their mask
     done = done | (active & fit_pt & ~ops.gather_bool(split))
     return done, ground, split
 
 
-def _child_remap(cfg, impl, xyz, pa, node, node_patch, done, split, plain):
+def _child_remap(cfg, impl, xyz, pa, node, node_patch, done, split, plain,
+                 ranks):
     """Execute the parent level's splits (engine.py:493-556): variance
     axis, exact per-node median, compact child slots.  ``split`` (B,
     cap_a + 1) is the parent level's split mask; the only active points are
-    those of split nodes.  Returns (node, node_patch (B, cap_a + 1), done).
+    those of split nodes.  Sums and the median cross ``ranks``.  Returns
+    (node, node_patch (B, cap_a + 1), done).
     """
     b, _, n = xyz.shape
     x, y = xyz[:, 0], xyz[:, 1]
@@ -511,28 +546,30 @@ def _child_remap(cfg, impl, xyz, pa, node, node_patch, done, split, plain):
     seg = torch.where(active, node, trash)
     ops = SegOps(seg, num_segs, _ops_impl(impl), plain=plain)
     w = active.to(torch.float32)
-    cnt_i = ops.count(active)
 
-    # population-variance axis about the full-node centroid (cpp:237-250)
-    sums = ops.sum(torch.stack([x * w, y * w], 1))
-    c_pt = ops.gather(sums / torch.clamp(cnt_i.to(torch.float32),
-                                         min=1.0)[:, None])
+    # population-variance axis about the full-node centroid (cpp:237-250);
+    # the count is the first row of the centroid's sums
+    sums = ranks.sum(ops.sum(torch.stack([w, x * w, y * w], 1)))
+    cnt_i = sums[:, 0].to(torch.int32)
+    c_pt = ops.gather(sums[:, 1:] / torch.clamp(cnt_i.to(torch.float32),
+                                                min=1.0)[:, None])
     dx = (x - c_pt[:, 0]) * w
     dy = (y - c_pt[:, 1]) * w
-    var = ops.sum(torch.stack([dx * dx, dy * dy], 1))
+    var = ranks.sum(ops.sum(torch.stack([dx * dx, dy * dy], 1)))
     axis_is_x = var[:, 0] > var[:, 1]
-
-    # exact per-node median: sorted[cnt // 2] (cpp:253-269)
-    val = torch.where(ops.gather_bool(axis_is_x), x, y)
-    sortv = sort_by_segment(flatten_batch(seg, num_segs), val.reshape(-1),
-                            b * num_segs)
-    median = sortv.order_stat((cnt_i // 2).reshape(-1)).reshape(b, num_segs)
 
     # compact child slots; overflowing nodes keep their converged mask
     split = split[:, :num_segs]
     split_i = split.to(torch.int64)
     base_slot = 2 * (torch.cumsum(split_i, 1) - split_i)
     ok = split & (base_slot + 1 < cap_a)
+
+    # exact per-node median: sorted[cnt // 2] (cpp:253-269); read only
+    # where a node splits into its slots
+    val = torch.where(ops.gather_bool(axis_is_x), x, y)
+    median = ranks.order_stat(seg, val, active, cnt_i // 2, num_segs, ok,
+                              "median")
+
     t2 = ops.gather(torch.stack([median, ok.to(torch.float32),
                                  base_slot.to(torch.float32)], 1))
     median_pt, ok_pt = t2[:, 0], t2[:, 1] > 0.5
@@ -551,9 +588,10 @@ def _child_remap(cfg, impl, xyz, pa, node, node_patch, done, split, plain):
     return node, np_next[:, :cap_a + 1], done
 
 
-def _generic_levels(cfg, impl, xyz, pa, tau_patch, zth_patch, plain):
+def _generic_levels(cfg, impl, xyz, pa, tau_patch, zth_patch, plain, ranks):
     """All levels on the generic engine (engine.py:627-659); returns the
-    (B, N) ground mask."""
+    (B, N) ground mask.  Every loop bound is read from values reduced
+    through ``ranks``, so every process runs the same levels."""
     b, _, n = xyz.shape
     num_p = cfg.num_patches
     cap_a = max(cfg.max_active_nodes, num_p)
@@ -562,7 +600,7 @@ def _generic_levels(cfg, impl, xyz, pa, tau_patch, zth_patch, plain):
     ground = torch.zeros_like(done)
     done, ground, split = _level_body(
         cfg, impl, xyz, pa, tau_patch, zth_patch, 0, num_p + 1, True, node,
-        None, done, ground, plain)
+        None, done, ground, plain, ranks)
     if cfg.effective_levels > 1:
         split = torch.nn.functional.pad(split, (0, cap_a - num_p))
         node_patch = torch.full((b, cap_a + 1), num_p, dtype=torch.int64,
@@ -571,17 +609,18 @@ def _generic_levels(cfg, impl, xyz, pa, tau_patch, zth_patch, plain):
         lvl = 1
         while lvl < cfg.effective_levels and bool(split.any()):
             node, node_patch, done = _child_remap(
-                cfg, impl, xyz, pa, node, node_patch, done, split, plain)
+                cfg, impl, xyz, pa, node, node_patch, done, split, plain,
+                ranks)
             done, ground, split = _level_body(
                 cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, cap_a + 1,
-                False, node, node_patch, done, ground, plain)
+                False, node, node_patch, done, ground, plain, ranks)
             lvl += 1
     return ground
 
 
 def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
-                          cfg: PatchworkConfig,
-                          plain: bool = False) -> GroundResult:
+                          cfg: PatchworkConfig, plain: bool = False,
+                          ranks: Ranks | None = None) -> GroundResult:
     """Segment (B, N, 3) float32 scans with (B, N) bool validity.
 
     Runs on the device the tensors are on: the CUDA kernels on a CUDA
@@ -596,16 +635,27 @@ def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
     ``"onehot"`` and ``"pallas"`` take the generic path.  Fast mode
     (``fast_covariance``) applies only under ``"fused"``; the others keep
     exact semantics.
+
+    ``ranks`` (segops.Ranks): the points of each scan are split over the
+    processes of its group, this one holding (B, n) of them; binning and
+    the generic path run on them alone and every per-node statistic crosses
+    the group (the point-sharded engine, ``parallel/sharded.py``).  It
+    takes a segment impl other than ``"fused"``.
     """
     impl = cfg.segment_impl or default_impl()
     if impl not in IMPLS:
         raise ValueError(f"unknown segment impl {impl!r}")
+    if ranks is None:
+        ranks = Ranks()
+    elif impl == "fused":
+        raise ValueError("points split over processes take the generic "
+                         "path: name a segment impl other than 'fused'")
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
         raise ValueError(f"xyz must be (B, N, 3) float32, got "
                          f"{tuple(xyz.shape)} {xyz.dtype}")
     if valid.shape != xyz.shape[:2] or valid.dtype != torch.bool:
         raise ValueError("valid must be (B, N) bool")
-    pa = assign_patches(xyz, valid, cfg, plain=plain)
+    pa = assign_patches(xyz, valid, cfg, plain=plain, ranks=ranks)
     xyz = torch.where(pa.finite[..., None], xyz, torch.zeros_like(xyz))
     if cfg.fast_covariance and impl == "fused":
         xyz = _shift_to_patch_centers(cfg, xyz, pa)
@@ -620,7 +670,7 @@ def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
                                zth_patch.contiguous(), run)
     else:
         ground = _generic_levels(cfg, impl, xyz.permute(0, 2, 1).contiguous(),
-                                 pa, tau_patch, zth_patch, plain)
+                                 pa, tau_patch, zth_patch, plain, ranks)
     return GroundResult(ground=ground & pa.in_patch, valid=pa.finite,
                         in_zone=pa.in_zone, in_patch=pa.in_patch)
 

@@ -24,6 +24,11 @@ kernels #6 and #8 on a CUDA tensor, their plain versions on the CPU.
 
 The segment sort (:func:`sort_by_segment`) stays plain torch, as the JAX
 package leaves it to XLA.
+
+:class:`Ranks` is what crosses the processes that hold one scan's points
+between them (the point-sharded engine, ``parallel/sharded.py``): the
+generic level engine reduces every per-node partial through it.  In one
+process it is the identity.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 
 __all__ = ["default_impl", "IMPLS", "flatten_batch", "seg_sum", "seg_min",
            "seg_max", "SegOps", "SegmentSort", "sort_by_segment", "f32_key",
-           "key_f32"]
+           "key_f32", "Ranks", "ORDER_STATS"]
 
 IMPLS = ("fused", "scatter", "onehot", "pallas")
 
@@ -262,3 +267,77 @@ def sort_by_segment(seg: torch.Tensor, val: torch.Tensor,
     counts = torch.bincount(seg, minlength=num_segments + 1)[:num_segments]
     starts = torch.cumsum(counts, 0) - counts
     return SegmentSort(val[order], starts, counts)
+
+
+# order statistics taken across processes, by what they are (the split
+# median, the percentile seed threshold), and the histograms they reduced
+ORDER_STATS = {"median": 0, "percentile": 0, "histograms": 0}
+
+
+class Ranks:
+    """What crosses the processes that hold one scan's points between them.
+
+    The generic level engine computes every per-node statistic as this
+    process's partial over its own points and hands it here: sums and
+    counts cross in rank order (``parallel.mesh.ordered_sum``, the same bits
+    on every process), bounding boxes as one MIN, and the order statistic
+    as kernel #2's per-round entry with each round's histogram summed over
+    the processes.  Every result is the same on every process, so every
+    branch the engine takes on it is too.  ``first`` is the global index
+    of this process's first point of a scan (the deficient fallback's
+    ties).  ``group=None``: this process holds whole scans; every method is
+    the identity, and the order statistic is the sort by segment.
+    """
+
+    def __init__(self, group=None, first: int = 0):
+        self.group = group
+        self.first = first
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return t
+        from ..parallel import mesh
+
+        return mesh.ordered_sum(t, self.group)
+
+    def min(self, t: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return t
+        from ..parallel import mesh
+
+        return mesh.all_min(t, self.group)
+
+    def bbox(self, mins: torch.Tensor, maxs: torch.Tensor):
+        """(mins, maxs) over every process, as one MIN of [mins, -maxs]
+        (negation is exact)."""
+        if self.group is None:
+            return mins, maxs
+        lo, hi = self.min(torch.cat([mins, -maxs], 1)).chunk(2, 1)
+        return lo, -hi
+
+    def _histograms(self, hist: torch.Tensor) -> torch.Tensor:
+        from ..parallel import mesh
+
+        ORDER_STATS["histograms"] += 1
+        return mesh.all_sum(hist, self.group)
+
+    def order_stat(self, seg: torch.Tensor, val: torch.Tensor,
+                   where: torch.Tensor, k: torch.Tensor, num_segs: int,
+                   need: torch.Tensor, what: str) -> torch.Tensor:
+        """(B, S) k-th smallest ``val`` of each node over the points
+        ``where`` of ids ``seg`` (B, N); k (B, S) from reduced counts.
+        Only the nodes ``need`` (B, S) are read: across processes the others
+        are not histogrammed and return 0.0."""
+        b = seg.shape[0]
+        if self.group is None:
+            ss = sort_by_segment(flatten_batch(seg, num_segs), val.reshape(-1),
+                                 b * num_segs)
+            return ss.order_stat(k.reshape(-1)).reshape(b, num_segs)
+        from ..kernels import fit_cuda
+
+        ORDER_STATS[what] += 1
+        k = torch.where(need, k, -1).to(torch.int32)
+        return fit_cuda.seg_order_stat(
+            val.contiguous(), seg.to(torch.int32).contiguous(),
+            where.contiguous(), k.contiguous(), num_segs,
+            reduce=self._histograms)

@@ -74,6 +74,7 @@ TOOL = os.path.join(REPO, "tools", "torch_multihost_bench.py")
 CFG = dict(filtering_radius=60.0, max_levels=3)
 CFG_PW = dict(filtering_radius=60.0)
 PROCS, BATCH, POINTS, BA_ITERS = 4, 4, 2048, 4
+SPLIT_POINTS = 8192   # the split-heavy batch: 2 scans
 BA_TOL = {"dense": 5e-3, "pcg": 1e-3}
 sys.path.insert(0, os.path.join(REPO, "tools"))
 from torch_multihost_bench import ONE_PROCESS_TOL  # noqa: E402
@@ -307,6 +308,23 @@ def test_refine_with_ba_takes_a_mesh(group):
 # four processes: tools/torch_multihost_bench.py
 # ---------------------------------------------------------------------------
 
+def _split_scene(seed, n=SPLIT_POINTS):
+    """tests/test_engine_parity.py's recursion scene (sloped terrain with a
+    0.5 m step, box obstacles), at n points: its patches split over two
+    remap levels under the default configuration."""
+    rng = np.random.default_rng(seed)
+    n_obst = n // 6
+    pts = np.empty((n - n_obst, 3), np.float32)
+    pts[:, 0] = rng.uniform(-80, 80, n - n_obst)
+    pts[:, 1] = rng.uniform(-80, 80, n - n_obst)
+    pts[:, 2] = (0.08 * pts[:, 0] + 0.5 * (pts[:, 1] > 20)
+                 + rng.normal(0, 0.05, n - n_obst))
+    obst = rng.uniform(-40, 40, (n_obst, 2))
+    oz = rng.uniform(0.5, 3.0, n_obst)
+    return np.concatenate([pts, np.column_stack([obst, oz])]).astype(
+        np.float32)
+
+
 def _tie_scene(n=2048):
     """tests/test_shardmap.py's scene: every point above z_th, so the
     3-lowest fallback must pick the global lowest indices across shards."""
@@ -323,8 +341,10 @@ def inputs():
     xyz = np.stack([demo_point_cloud(POINTS, seed=i) for i in range(BATCH)])
     xyz_pw = np.stack([demo_point_cloud(POINTS, seed=100 + i)
                        for i in range(BATCH - 1)] + [_tie_scene()])
+    xyz_split = np.stack([_split_scene(7 + i) for i in range(2)])
     arrays = {"xyz": xyz, "valid": np.ones(xyz.shape[:2], bool),
-              "xyz_pw": xyz_pw, "valid_pw": np.ones(xyz_pw.shape[:2], bool)}
+              "xyz_pw": xyz_pw, "valid_pw": np.ones(xyz_pw.shape[:2], bool),
+              "xyz_split": xyz_split}
     for solver, (k, l) in BA_SHAPES.items():
         for key, a in zip(("poses", "points", "obs_k", "obs_l", "obs_p",
                            "obs_w"), _ba_arrays(k, l, seed=k)):
@@ -365,16 +385,39 @@ def test_workers_agree_with_one_process(run):
         assert w["summary"] == f"process {r}/{PROCS}: 1 local / {PROCS} " \
                                "global devices"
         assert w["mesh_sp"] == [2, 2] and w["sp_impl"] == "scatter"
-        for key in ("dp", "pipeline", "sp", "explicit", "explicit_vs_engine"):
+        for key in ("dp", "pipeline", "sp", "sp_pct", "sp_split", "explicit",
+                    "explicit_vs_engine"):
             assert w[f"{key}_bit_errors"] == 0, (r, key)
         assert w["pipeline_count_errors"] == 0
+        # the split-heavy batch remapped and took its medians across the sp
+        # pair, five histogram rounds each; the percentile arm its seeds
+        os_split, os_pct = w["order_stats"]["sp_split"], w["order_stats"][
+            "sp_pct"]
+        assert os_split["median"] >= 2 and os_split["percentile"] == 0
+        assert os_split["histograms"] == 5 * os_split["median"]
+        assert os_pct["percentile"] >= 1
+        assert os_pct["histograms"] == 5 * (os_pct["percentile"]
+                                            + os_pct["median"])
+        assert w["order_stats"]["sp"]["histograms"] == 5 * w["order_stats"][
+            "sp"]["median"]
 
 
-@pytest.mark.parametrize("engine", ["dp", "pipeline", "sp"])
+@pytest.mark.parametrize("engine", ["dp", "pipeline", "sp", "sp_pct",
+                                    "sp_split"])
 def test_sharded_engines_match_jax_and_oracle(run, inputs, engine):
+    """sp: the point-sharded engine on the engines' batch; sp_pct: the same
+    with percentile seeds (adaptive_seed_height=False); sp_split: on the
+    split-heavy batch under the default configuration (remap levels, the
+    median across ranks)."""
     _, out = run
     jcfg = JaxConfig(**CFG)
     xyz, valid = jnp.asarray(inputs["xyz"]), jnp.asarray(inputs["valid"])
+    if engine == "sp_pct":
+        jcfg = JaxConfig(**CFG, adaptive_seed_height=False)
+    elif engine == "sp_split":
+        jcfg = JaxConfig()
+        xyz = jnp.asarray(inputs["xyz_split"])
+        valid = jnp.ones(xyz.shape[:2], bool)
     m = _jax_mesh(2, 2)
     if engine == "pipeline":
         res, g_cnt, _ = jsharded.make_sharded_pipeline(
@@ -383,9 +426,9 @@ def test_sharded_engines_match_jax_and_oracle(run, inputs, engine):
                                       out[engine].sum(1))
     else:
         res = jsharded.make_sharded_filter_ground(
-            jcfg, m, shard_points=engine == "sp")(xyz, valid)
+            jcfg, m, shard_points=engine.startswith("sp"))(xyz, valid)
     np.testing.assert_array_equal(out[engine], np.asarray(res.ground))
-    np.testing.assert_array_equal(out[engine], _oracle(inputs["xyz"], jcfg))
+    np.testing.assert_array_equal(out[engine], _oracle(np.asarray(xyz), jcfg))
 
 
 def test_explicit_engine_matches_jax(run, inputs):

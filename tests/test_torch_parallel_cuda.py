@@ -1,7 +1,8 @@
 """The port's multi-process execution on the card: the free segment
-functions (kernels #6 and #8) against their plain versions, ``ordered_sum``
-across two ranks on one card, the sharded entry points over a one-rank
-NCCL group, and tools/torch_multihost_bench.py with two ranks on one card.
+functions (kernels #6 and #8) and #2's per-round entry against their plain
+versions, ``ordered_sum`` across two ranks on one card, the sharded entry
+points over a one-rank NCCL group, and tools/torch_multihost_bench.py with
+two ranks on one card.
 
 These tests need an NVIDIA GPU and skip without one; they import no JAX:
 
@@ -66,6 +67,72 @@ def test_free_seg_functions_on_card(dev, n, c):
     # the CPU's free functions (the plain versions) give the same bits
     assert _equal(got.cpu(), segops.seg_sum(data, seg, 81))
     assert torch.isinf(lo[79:]).all() and (lo[79:] > 0).all()
+
+
+def _split_halves(fn, vals, seg, valid, k, s):
+    """fn with the per-round entry on two threads, each holding half of
+    every scan's points, the rounds' histograms summed between them."""
+    import threading
+
+    n = vals.shape[1] // 2
+    barrier = threading.Barrier(2, timeout=60)
+    slots, outs = [None, None], [None, None]
+
+    def run(r):
+        def reduce(h):
+            slots[r] = h
+            barrier.wait()
+            total = slots[0] + slots[1]
+            barrier.wait()
+            return total
+
+        part = slice(r * n, (r + 1) * n)
+        outs[r] = fn(vals[:, part].contiguous(), seg[:, part].contiguous(),
+                     valid[:, part].contiguous(), k, s, reduce=reduce)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    return outs
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "extremes"])
+def test_order_stat_rounds_on_card(dev, kind):
+    """#2's per-round entry against its plain version, bit for bit, whole
+    and in two halves; where k is in range, the one-launch kernel's value."""
+    rng = np.random.default_rng(3)
+    b, n, s = 2, 65536, 256
+    vals = rng.normal(0, 10, (b, n)).astype(np.float32)
+    if kind == "ties":
+        vals = np.round(vals).astype(np.float32)
+    elif kind == "extremes":
+        vals[:, ::5] = 3e38
+        vals[:, 1::5] = -3e38
+        vals[:, 2::5] = -0.0
+        vals[:, 3::7] = 1e-42
+    seg = rng.integers(0, s - 3, (b, n)).astype(np.int32)
+    seg[:, n // 2:][seg[:, n // 2:] == 7] = 8      # node 7 on one half only
+    valid = rng.random((b, n)) < 0.95
+    cnt = np.stack([np.bincount(seg[i][valid[i]], minlength=s)
+                    for i in range(b)])
+    k = np.where(cnt > 0, cnt // 2, -1).astype(np.int32)
+    k[:, 5] = 0
+    t = [torch.from_numpy(a).to(dev) for a in (vals, seg, valid, k)]
+    before = fit_cuda.LAUNCHES["seg_order_stat_rounds"]
+    got = fit_cuda.seg_order_stat(*t, s, reduce=lambda h: h)
+    assert fit_cuda.LAUNCHES["seg_order_stat_rounds"] - before == 7
+    want = fit_cuda.seg_order_stat_plain(*t, s, reduce=lambda h: h)
+    assert _equal(got, want)
+    assert _equal(got.cpu(), fit_cuda.seg_order_stat_plain(
+        *(x.cpu() for x in t), s, reduce=lambda h: h))
+    used = t[3] >= 0
+    assert _equal(got[used], fit_cuda.seg_order_stat(*t, s)[used])
+    for h, p in zip(_split_halves(fit_cuda.seg_order_stat, *t, s),
+                    _split_halves(fit_cuda.seg_order_stat_plain, *t, s)):
+        assert _equal(h, p) and _equal(h, got)
 
 
 _RANK = textwrap.dedent("""
@@ -153,3 +220,6 @@ def test_tool_two_ranks_on_one_card(dev, tmp_path):
         assert w["launches"]["explicit"].get("seg_gather", 0) > 0
         assert w["launches"]["explicit"].get("seg_minmax", 0) > 0
         assert w["launches"]["dp"].get("level", 0) > 0
+        assert w["peak_mb"]["sp"] > 0 and w["busy_ms"]["sp"] > 0
+        assert w["sp_pct_bit_errors"] == 0
+        assert w["launches"]["sp_pct"].get("seg_order_stat_rounds", 0) > 0

@@ -13,19 +13,28 @@ of this script; they meet through a ``FileStore`` in a temporary directory
    (P / 2, 2) for the point-sharded engines (``--procs`` even);
 2. runs the dp engine (``make_sharded_filter_ground``, whole scans), the
    pipeline (``make_sharded_pipeline`` on the (P / 2, 2) mesh, whole
-   scans, replicated over sp), the sp engine (points sharded), the
-   explicit-collective engine on ``PatchworkConfig.patchwork()`` and
-   ``bundle_adjust_sharded``, dense and PCG, each twice;
+   scans, replicated over sp), the sp engine (points sharded: each rank
+   segments its own N/2 points of every scan, and per-node blocks cross
+   the sp pair) on the engines' batch, on a split-heavy batch when one is
+   given (its remap levels take the median across ranks) and with
+   ``adaptive_seed_height=False`` (the percentile), the explicit-collective
+   engine on ``PatchworkConfig.patchwork()`` and ``bundle_adjust_sharded``,
+   dense and PCG, each twice;
 3. compares each result with the same computation on one process:
    ``filter_ground_batched`` with the impl the entry point runs, the
    explicit engine on the whole scans (``patchwork_level``) and the
    configuration's own single-device engine, ``bundle_adjust``;
 4. writes its record: differing mask bits per engine, the largest pose and
    point difference of BA, whether two BA runs gave the same bits, the
-   launches per kernel family and the collectives of each entry point's
-   timed call, times (by CUDA events on the card, the host clock on the
-   CPU) and the cost of one ``ordered_sum`` of a CG iteration's (K, 6) and
-   (L, 3) blocks.
+   launches per kernel family, the collectives, the peak of the card's
+   allocator and the order statistics taken across ranks of each entry
+   point's timed call, times (by CUDA events on the card, the host clock
+   on the CPU), the device busy time of one call of each sp arm
+   (torch.profiler, on the card), and the cost of one ``ordered_sum`` of a
+   CG iteration's (K, 6) and (L, 3) blocks.
+
+Copied into an older tree (``git archive``), the tool measures that tree's
+entry points the same way; what the tree lacks is recorded as null.
 
 If a worker fails, the launcher kills the others and exits non-zero; it
 exits non-zero too if any check fails.  On the card it builds the kernels
@@ -35,7 +44,10 @@ one device); gloo's collectives on CUDA tensors go through host memory.
 
 Inputs: ``--inputs FILE.npz`` (arrays made from a seed by the caller) with
 any of ``xyz`` (B, N, 3) / ``valid`` (B, N) for the engines, ``xyz_pw`` /
-``valid_pw`` for the explicit engine (default: the same scans), and
+``valid_pw`` for the explicit engine (default: the same scans),
+``xyz_split`` / ``valid_split`` for the sp engine's split-heavy arm (none
+by default; ``--split`` makes chip_smoke.py's split terrain;
+``--split-config-json`` its configuration), and
 ``ba_dense_*`` / ``ba_pcg_*`` for the two BA problems (``poses``,
 ``points``, ``obs_k``, ``obs_l``, ``obs_p``, ``obs_w``); what is missing
 comes from the port's generators (``velodyne_like_cloud`` from seeds 0..B-1,
@@ -45,7 +57,7 @@ Usage:
   python3 tools/torch_multihost_bench.py --procs 4 --device cpu \\
       --batch 4 --points 2048 --json-out mh.json
   python3 tools/torch_multihost_bench.py --procs 2 --device cuda \\
-      --backend gloo --batch 8 --points 131072 --json-out mh.json
+      --backend gloo --batch 8 --points 131072 --split --json-out mh.json
 """
 
 from __future__ import annotations
@@ -147,7 +159,10 @@ class _Clock:
         torch = self.torch
         if self.dev.type == "cuda":
             fn(*args, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(self.dev)
         before, n0 = dict(fit_cuda.LAUNCHES), self.collectives
+        os0 = dict(_order_stats() or {})
         if self.dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -162,7 +177,40 @@ class _Clock:
             ms = (time.perf_counter() - t0) * 1e3
         launches = {k: v - before[k] for k, v in fit_cuda.LAUNCHES.items()
                     if v != before[k]}
-        return out, ms, launches, self.collectives - n0
+        os1 = _order_stats()
+        extra = {
+            "peak_mb": (torch.cuda.max_memory_allocated(self.dev) / 2 ** 20
+                        if self.dev.type == "cuda" else None),
+            "order_stats": (None if os1 is None else
+                            {k: v - os0[k] for k, v in os1.items()})}
+        return out, ms, launches, self.collectives - n0, extra
+
+    def busy_ms(self, fn, *args, **kw):
+        """Device busy time of one call: the card's kernels, copies and
+        fills as torch.profiler records them; None on the CPU."""
+        torch = self.torch
+        if self.dev.type != "cuda":
+            return None
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args, **kw)
+            torch.cuda.synchronize()
+        return sum(getattr(ev, "self_device_time_total",
+                           getattr(ev, "self_cuda_time_total", 0.0))
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA) / 1e3
+
+
+def _order_stats():
+    """segops.ORDER_STATS (order statistics taken across ranks, and the
+    histograms they reduced), or None in a tree without it."""
+    from patchwork_tpu_torch.segment import segops
+
+    return getattr(segops, "ORDER_STATS", None)
 
 
 def _inputs(args, dev) -> dict:
@@ -176,6 +224,14 @@ def _inputs(args, dev) -> dict:
         arrays["valid"] = np.ones(arrays["xyz"].shape[:2], bool)
     arrays.setdefault("xyz_pw", arrays["xyz"])
     arrays.setdefault("valid_pw", arrays["valid"])
+    if args.split and "xyz_split" not in arrays:
+        from chip_smoke import split_terrain_cloud
+
+        arrays["xyz_split"] = np.stack([split_terrain_cloud(args.points, seed=i)
+                                        for i in range(args.batch)])
+    if "xyz_split" in arrays:
+        arrays.setdefault("valid_split",
+                          np.ones(arrays["xyz_split"].shape[:2], bool))
     for solver, shape in (("dense", (6, 24, 144)), ("pcg", (8, 32, 256))):
         if f"ba_{solver}_poses" not in arrays:
             for key, a in synthetic_ba(*shape).items():
@@ -231,14 +287,17 @@ def _worker(args) -> int:
            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "backend": args.backend, "mesh_sp": [procs // SP, SP],
-           "clock": clock.name, "ms": {}, "launches": {}, "collectives": {}}
+           "clock": clock.name, "ms": {}, "launches": {}, "collectives": {},
+           "peak_mb": {}, "order_stats": {}, "busy_ms": {}}
     arrays = {}
 
     def arm(name, fn, *a, **kw):
-        out, ms, launches, collectives = clock(fn, *a, **kw)
+        out, ms, launches, collectives, extra = clock(fn, *a, **kw)
         rec["ms"][name] = ms
         rec["launches"][name] = launches
         rec["collectives"][name] = collectives
+        for key, v in extra.items():
+            rec[key][name] = v
         return out
 
     xyz, valid = data["xyz"], data["valid"]
@@ -265,13 +324,24 @@ def _worker(args) -> int:
         + _bits(ng_cnt, (res.valid & ~res.ground).sum(1)))
     arrays["pipeline"] = res.ground
 
-    # -- the sp engine: points sharded, the impl forced
+    # -- the sp engine: points sharded, the impl forced; on the engines'
+    # batch, the split-heavy batch and with percentile seeds
     impl = point_sharded_impl(cfg, dev)
-    ref_sp = filter_ground_batched(xyz, valid, cfg.replace(segment_impl=impl))
-    res = arm("sp", make_sharded_filter_ground(cfg, mesh_sp), xyz, valid)
     rec["sp_impl"] = impl
-    rec["sp_bit_errors"] = _bits(res.ground, ref_sp.ground)
-    arrays["sp"] = res.ground
+    sp_arms = [("sp", cfg, xyz, valid),
+               ("sp_pct", cfg.replace(adaptive_seed_height=False), xyz,
+                valid)]
+    if "xyz_split" in data:
+        sp_arms.append(("sp_split", PatchworkConfig(**json.loads(
+            args.split_config_json)), data["xyz_split"],
+            data["valid_split"]))
+    for name, c, x, v in sp_arms:
+        ref_sp = filter_ground_batched(x, v, c.replace(segment_impl=impl))
+        fn = make_sharded_filter_ground(c, mesh_sp)
+        res = arm(name, fn, x, v)
+        rec["busy_ms"][name] = clock.busy_ms(fn, x, v)
+        rec[f"{name}_bit_errors"] = _bits(res.ground, ref_sp.ground)
+        arrays[name] = res.ground
 
     # -- the explicit-collective engine, single level
     cfg_pw = PatchworkConfig.patchwork(**json.loads(args.pw_config_json))
@@ -320,7 +390,8 @@ def _worker(args) -> int:
 
     rec["ok"] = bool(
         rec["dp_bit_errors"] == 0 and rec["pipeline_bit_errors"] == 0
-        and rec["pipeline_count_errors"] == 0 and rec["sp_bit_errors"] == 0
+        and rec["pipeline_count_errors"] == 0
+        and all(rec[f"{name}_bit_errors"] == 0 for name, *_ in sp_arms)
         and rec["explicit_bit_errors"] == 0
         and rec["explicit_vs_engine_bit_errors"] == 0
         and all(rec[f"ba_{s}_runs_equal"]
@@ -405,11 +476,10 @@ def _launch(args) -> int:
            "backend": args.backend, "batch": args.batch,
            "wall_s": time.perf_counter() - t0,
            "all_ok": all(w["ok"] for w in workers), "workers": workers}
-    summary = {k: max(w[k] for w in workers) for k in (
-        "dp_bit_errors", "pipeline_bit_errors", "pipeline_count_errors",
-        "sp_bit_errors", "explicit_bit_errors",
-        "explicit_vs_engine_bit_errors", "ba_dense_pose_max_abs_diff",
-        "ba_pcg_pose_max_abs_diff")}
+    summary = {k: max(w[k] for w in workers) for k in workers[0]
+               if k.endswith("_bit_errors") or k in (
+                   "pipeline_count_errors", "ba_dense_pose_max_abs_diff",
+                   "ba_pcg_pose_max_abs_diff")}
     print(json.dumps({"procs": args.procs, "all_ok": doc["all_ok"],
                       **summary}))
     if args.json_out:
@@ -431,6 +501,13 @@ def main() -> int:
     ap.add_argument("--pw-config-json", default="{}",
                     help="PatchworkConfig.patchwork() fields of the "
                          "explicit engine")
+    ap.add_argument("--split", action="store_true",
+                    help="without xyz_split in --inputs, make the split-heavy "
+                         "batch (chip_smoke.split_terrain_cloud, seeds "
+                         "0..B-1)")
+    ap.add_argument("--split-config-json", default="{}",
+                    help="PatchworkConfig fields of the sp engine on the "
+                         "split-heavy batch (xyz_split)")
     ap.add_argument("--ba-iters", type=int, default=2)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--json-out", default=None)
