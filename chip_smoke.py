@@ -175,24 +175,6 @@ APPLY_FLOPS = {False: 31, True: 43}
 M2_FLOPS = 19
 
 
-def split_terrain_cloud(n: int, seed: int):
-    """Sloped ground (8% grade) with a 0.5 m step and box obstacles: the
-    engine parity suite's recursion scene, whose residuals split patches
-    to depth 3+ (tests/test_engine_parity.py test_split_recursion)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    n_obst = n // 6
-    n_g = n - n_obst
-    g = np.empty((n_g, 3), np.float32)
-    g[:, 0] = rng.uniform(-80, 80, n_g)
-    g[:, 1] = rng.uniform(-80, 80, n_g)
-    g[:, 2] = 0.08 * g[:, 0] + 0.5 * (g[:, 1] > 20) + rng.normal(0, 0.05, n_g)
-    obst = rng.uniform(-40, 40, (n_obst, 2))
-    oz = rng.uniform(0.5, 3.0, n_obst)
-    return np.concatenate([g, np.column_stack([obst, oz])]).astype(np.float32)
-
-
 T0 = time.perf_counter()
 
 
@@ -629,7 +611,7 @@ def rounds_in_parts(fn, a, parts: int):
     vals, seg, valid, k, s = a
     n = vals.shape[1]
     cut = [n * r // parts for r in range(parts + 1)]
-    barrier = threading.Barrier(parts)
+    barrier = threading.Barrier(parts, timeout=120)
     slots, outs, errors = [None] * parts, [None] * parts, []
 
     def run(r):
@@ -1019,7 +1001,7 @@ def phase7(dev, card: str, fails: Failures) -> dict:
     from patchwork_tpu_torch.io.bag import write_mcap_topics
     from patchwork_tpu_torch.io.synthetic import (
         demo_point_cloud, fused_iac_cloud, iac_three_lidar_scene,
-        velodyne_like_cloud)
+        split_terrain_cloud, velodyne_like_cloud)
     from patchwork_tpu_torch.kernels import fit_cuda
     from patchwork_tpu_torch.launch import load_launch, run_launch
     from patchwork_tpu_torch.node import PatchworkNode
@@ -1801,7 +1783,8 @@ def main() -> int:
         PatchworkConfig, RecursivePatchwork, filter_ground_batched)
     from patchwork_tpu_torch.core.device import card_info, cuda_device
     from patchwork_tpu_torch.io.synthetic import (
-        HARD_SCENES, hard_labeled_scene, velodyne_like_cloud)
+        HARD_SCENES, hard_labeled_scene, split_terrain_cloud,
+        velodyne_like_cloud)
     from patchwork_tpu_torch.kernels import _build, fit_cuda, seg_cuda
     from patchwork_tpu_torch.segment import binning, engine
 

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["demo_point_cloud", "demo_labels", "uniform_cube_cloud",
-           "velodyne_like_cloud", "iac_three_lidar_scene", "fused_iac_cloud",
+           "velodyne_like_cloud", "split_terrain_cloud",
+           "iac_three_lidar_scene", "fused_iac_cloud",
            "hard_labeled_scene", "HARD_SCENES", "simulate_world",
            "simulate_sequence"]
 
@@ -171,6 +172,23 @@ def velodyne_like_cloud(
     all_az = np.concatenate(
         [az, np.arctan2(obst[:, 1], obst[:, 0])]).astype(np.float32)
     return pts[np.argsort(all_az, kind="stable")]
+
+
+def split_terrain_cloud(n: int, seed: int) -> np.ndarray:
+    """Sloped ground (8% grade) with a 0.5 m step and box obstacles: the
+    engine parity suite's recursion scene, whose residuals split patches
+    to depth 3+ under the default configuration (the JAX package's
+    tests/test_engine_parity.py test_split_recursion)."""
+    rng = np.random.default_rng(seed)
+    n_obst = n // 6
+    n_g = n - n_obst
+    g = np.empty((n_g, 3), np.float32)
+    g[:, 0] = rng.uniform(-80, 80, n_g)
+    g[:, 1] = rng.uniform(-80, 80, n_g)
+    g[:, 2] = 0.08 * g[:, 0] + 0.5 * (g[:, 1] > 20) + rng.normal(0, 0.05, n_g)
+    obst = rng.uniform(-40, 40, (n_obst, 2))
+    oz = rng.uniform(0.5, 3.0, n_obst)
+    return np.concatenate([g, np.column_stack([obst, oz])]).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -308,11 +308,12 @@ def seg_order_stat(vals: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
     processes.  A callable applied to every round's (M, 128) int32
     histogram of the M segments with k >= 0 (every process passes the same
     k, read from reduced counts): an ``all_reduce`` of SUM over the
-    processes.  Passes 1 and 2 once, then a launch a round that selects
-    from the previous round's reduced histogram and counts this process's
-    keys into the current 128 buckets, and a last select: seven launches
-    (``LAUNCHES["seg_order_stat_rounds"]``).  The other segments return
-    0.0.  Its plain version is :func:`seg_order_stat_rounds_plain`.
+    processes.  Passes 1 and 2 once (one C call, two kernels), then a
+    launch a round that selects from the previous round's reduced
+    histogram and counts this process's keys into the current 128
+    buckets, and a last select: 7 C calls counted under
+    ``LAUNCHES["seg_order_stat_rounds"]``, 8 kernels.  The other segments
+    return 0.0.  Its plain version is :func:`seg_order_stat_rounds_plain`.
     """
     if not _on_card(vals, seg, valid, k):
         return seg_order_stat_plain(vals, seg, valid, k, num_segs, reduce)

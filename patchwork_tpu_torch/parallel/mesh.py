@@ -37,11 +37,12 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..core.device import resolve_device
+from ..segment.segops import Ranks
 
 __all__ = ["DATA_AXIS", "POINT_AXIS", "make_mesh", "axis_index",
            "axis_size", "BatchLayout", "scan_batch_sharding", "replicated",
            "all_gather", "ordered_sum", "all_sum", "all_min", "all_max",
-           "replicated_max_diff"]
+           "ranks_over", "replicated_max_diff"]
 
 DATA_AXIS = "dp"
 POINT_AXIS = "sp"
@@ -148,6 +149,19 @@ def all_min(t: torch.Tensor, group) -> torch.Tensor:
 def all_max(t: torch.Tensor, group) -> torch.Tensor:
     """Elementwise max over the group's ranks."""
     return _all_reduce(t, group, dist.ReduceOp.MAX)
+
+
+def ranks_over(group, first: int = 0) -> Ranks:
+    """The generic level engine's ``segops.Ranks`` over ``group``, whose
+    ranks hold one scan's points between them (this one from global index
+    ``first``): float partials by :func:`ordered_sum`, minima by
+    :func:`all_min`, the order statistic's histograms by :func:`all_sum`.
+    ``group=None``: ``Ranks(first=first)``, this process alone."""
+    if group is None:
+        return Ranks(first=first)
+    return Ranks(sum=lambda t: ordered_sum(t, group),
+                 min=lambda t: all_min(t, group),
+                 histograms=lambda h: all_sum(h, group), first=first)
 
 
 def replicated_max_diff(t: torch.Tensor, group) -> float:

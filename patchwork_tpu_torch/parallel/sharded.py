@@ -19,14 +19,15 @@ takes the global batch, identical on every rank, and returns the global
   runs binning and the generic levels on those points alone, with the
   segment impl forced as sharded.py:100-102 forces it.  Every per-node
   statistic is the rank's partial, reduced over the sp group through a
-  ``segops.Ranks`` bound to it: sums and counts by ``mesh.ordered_sum`` (the
-  same bits on every rank), bounding boxes and the deficient fallback's
-  (z, global index) minima by MIN, and the split median and percentile
-  seeds by kernel #2's per-round entry, each of its five histogram rounds
-  summed over sp (``mesh.all_sum``; integer counts, so the same key on every
-  rank).  Every branch and loop bound is read from reduced values.  What
-  crosses between ranks is per-node blocks, never points; the one
-  per-point collective is the final join of the masks.
+  ``segops.Ranks`` bound to it (``mesh.ranks_over``): sums and counts by
+  ``mesh.ordered_sum`` (the same bits on every rank), bounding boxes and
+  the deficient fallback's (z, global index) minima by MIN, and the split
+  median and percentile seeds by kernel #2's per-round entry, each of its
+  five histogram rounds summed over sp (``mesh.all_sum``; integer counts,
+  so the same key on every rank).  Every branch and loop bound is read
+  from reduced values.  What crosses between ranks is per-node blocks,
+  never points; the one per-point collective is the final join of the
+  masks.
 
 The forced impl: the JAX package takes ``segment_impl`` or its
 ``default_impl(gspmd=True)``, "onehot" on a TPU and "scatter" elsewhere
@@ -47,8 +48,8 @@ import torch
 from ..core.config import PatchworkConfig
 from ..core.types import GroundResult
 from ..segment.engine import filter_ground_batched
-from ..segment.segops import Ranks, default_impl
-from .mesh import POINT_AXIS, axis_index, scan_batch_sharding
+from ..segment.segops import default_impl
+from .mesh import POINT_AXIS, axis_index, ranks_over, scan_batch_sharding
 
 __all__ = ["make_sharded_filter_ground", "make_sharded_pipeline",
            "make_shardmap_fused", "point_sharded_impl"]
@@ -105,7 +106,7 @@ def _sharded(cfg: PatchworkConfig, mesh, shard_points: bool,
 
     def fn(xyz: torch.Tensor, valid: torch.Tensor):
         xb, vb = layout.cut(xyz), layout.cut(valid)
-        ranks = Ranks(group, j * xb.shape[1]) if shard_points else None
+        ranks = ranks_over(group, j * xb.shape[1]) if shard_points else None
         res = filter_ground_batched(xb, vb, cfg.replace(
             segment_impl=impl or point_sharded_impl(cfg, xyz.device)),
             ranks=ranks)

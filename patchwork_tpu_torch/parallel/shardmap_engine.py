@@ -6,11 +6,12 @@ statistic is a local partial on each rank, combined by explicit
 collectives over sp.  That is the point-sharded engine of
 :mod:`.sharded` at one level, and :func:`patchwork_level` is a call into
 it: the generic level engine on this rank's points with a
-``segops.Ranks`` bound to the group, ``mesh.ordered_sum`` for sums and
-counts (rank order, so every rank holds the same bits), one MIN for
-bounding boxes and both rounds of each pick of the lexicographic 3-lowest
-seed fallback, by (z, global point index).  What crosses between ranks is
-a (B, C, nodes) block a reduction, never points.
+``segops.Ranks`` bound to the group (``mesh.ranks_over``):
+``mesh.ordered_sum`` for sums and counts (rank order, so every rank holds
+the same bits), one MIN for bounding boxes and both rounds of each pick of
+the lexicographic 3-lowest seed fallback, by (z, global point index).
+What crosses between ranks is a (B, C, nodes) block a reduction, never
+points.
 
 The local partials are the port's segment ops over one ``SegOps(...,
 "pallas")`` binding a level: on the card kernel #6 over the binding's plan
@@ -31,8 +32,7 @@ import torch
 
 from ..core.config import PatchworkConfig
 from ..segment.engine import filter_ground_batched
-from ..segment.segops import Ranks
-from .mesh import POINT_AXIS, axis_index, scan_batch_sharding
+from .mesh import POINT_AXIS, axis_index, ranks_over, scan_batch_sharding
 
 __all__ = ["make_shardmap_patchwork", "patchwork_level"]
 
@@ -46,7 +46,7 @@ def patchwork_level(cfg: PatchworkConfig, xyz: torch.Tensor,
     the whole scan, on this process alone).  Returns ground (B, n) bool."""
     return filter_ground_batched(
         xyz, valid, cfg.replace(max_levels=1, segment_impl="pallas"),
-        ranks=Ranks(group, shard_start)).ground
+        ranks=ranks_over(group, shard_start)).ground
 
 
 def make_shardmap_patchwork(cfg: PatchworkConfig, mesh):

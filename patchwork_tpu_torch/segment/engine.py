@@ -466,10 +466,11 @@ def _level_body(cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, num_segs,
         cnt_i = ranks.sum(ops.count(active))
         k10 = (_f32(cfg.seed_percentile) * cnt_i.to(torch.float32)).to(
             torch.int32)
-        # only fitting nodes read their threshold (fit needs no seed count)
-        z_th = ranks.order_stat(seg, z, active, k10, num_segs,
-                                early_outs(cnt_i, cnt_i)[2], "percentile") \
-            + _f32(cfg.th_seeds)
+        # across processes only fitting nodes are histogrammed (fit needs no
+        # seed count); one process takes the sort and reads no mask
+        need = early_outs(cnt_i, cnt_i)[2] if ranks.across else None
+        z_th = ranks.order_stat(seg, z, active, k10, num_segs, need,
+                                "percentile") + _f32(cfg.th_seeds)
         tg = ops.gather(torch.stack([z_th, tau_node], 1))
         zth_pt, tau_pt = tg[:, 0], tg[:, 1]
         seed = active & (z < zth_pt)

@@ -33,7 +33,7 @@ process it is the identity.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -274,62 +274,60 @@ def sort_by_segment(seg: torch.Tensor, val: torch.Tensor,
 ORDER_STATS = {"median": 0, "percentile": 0, "histograms": 0}
 
 
+def _identity(t):
+    return t
+
+
 class Ranks:
     """What crosses the processes that hold one scan's points between them.
 
     The generic level engine computes every per-node statistic as this
-    process's partial over its own points and hands it here: sums and
-    counts cross in rank order (``parallel.mesh.ordered_sum``, the same bits
-    on every process), bounding boxes as one MIN, and the order statistic
-    as kernel #2's per-round entry with each round's histogram summed over
-    the processes.  Every result is the same on every process, so every
+    process's partial over its own points and hands it here, to three
+    reductions the caller supplies: ``sum`` of float partials (the same
+    bits on every process), ``min`` elementwise, and ``histograms``, the
+    sum of the order statistic's (M, 128) int32 histograms, which kernel
+    #2's per-round entry reduces between its rounds.  Bounding boxes cross
+    as one ``min``.  Every result is the same on every process, so every
     branch the engine takes on it is too.  ``first`` is the global index
     of this process's first point of a scan (the deficient fallback's
-    ties).  ``group=None``: this process holds whole scans; every method is
-    the identity, and the order statistic is the sort by segment.
+    ties).  ``parallel.mesh.ranks_over`` binds the three to a process
+    group.  ``Ranks()``: this process holds whole scans; every reduction
+    is the identity, and the order statistic is the sort by segment.
     """
 
-    def __init__(self, group=None, first: int = 0):
-        self.group = group
+    def __init__(self, sum: Optional[Callable] = None,
+                 min: Optional[Callable] = None,
+                 histograms: Optional[Callable] = None, first: int = 0):
+        if len({sum is None, min is None, histograms is None}) > 1:
+            raise ValueError("Ranks takes all three reductions or none")
+        self.across = sum is not None
+        self.sum = sum or _identity
+        self.min = min or _identity
+        self._histograms = histograms
         self.first = first
-
-    def sum(self, t: torch.Tensor) -> torch.Tensor:
-        if self.group is None:
-            return t
-        from ..parallel import mesh
-
-        return mesh.ordered_sum(t, self.group)
-
-    def min(self, t: torch.Tensor) -> torch.Tensor:
-        if self.group is None:
-            return t
-        from ..parallel import mesh
-
-        return mesh.all_min(t, self.group)
 
     def bbox(self, mins: torch.Tensor, maxs: torch.Tensor):
         """(mins, maxs) over every process, as one MIN of [mins, -maxs]
         (negation is exact)."""
-        if self.group is None:
+        if not self.across:
             return mins, maxs
         lo, hi = self.min(torch.cat([mins, -maxs], 1)).chunk(2, 1)
         return lo, -hi
 
-    def _histograms(self, hist: torch.Tensor) -> torch.Tensor:
-        from ..parallel import mesh
-
+    def _reduce_histograms(self, hist: torch.Tensor) -> torch.Tensor:
         ORDER_STATS["histograms"] += 1
-        return mesh.all_sum(hist, self.group)
+        return self._histograms(hist)
 
     def order_stat(self, seg: torch.Tensor, val: torch.Tensor,
                    where: torch.Tensor, k: torch.Tensor, num_segs: int,
-                   need: torch.Tensor, what: str) -> torch.Tensor:
+                   need: Optional[torch.Tensor], what: str) -> torch.Tensor:
         """(B, S) k-th smallest ``val`` of each node over the points
         ``where`` of ids ``seg`` (B, N); k (B, S) from reduced counts.
-        Only the nodes ``need`` (B, S) are read: across processes the others
-        are not histogrammed and return 0.0."""
+        Across processes only the nodes ``need`` (B, S) are read: the others
+        are not histogrammed and return 0.0.  In one process ``need`` is
+        not read (None will do)."""
         b = seg.shape[0]
-        if self.group is None:
+        if not self.across:
             ss = sort_by_segment(flatten_batch(seg, num_segs), val.reshape(-1),
                                  b * num_segs)
             return ss.order_stat(k.reshape(-1)).reshape(b, num_segs)
@@ -340,4 +338,4 @@ class Ranks:
         return fit_cuda.seg_order_stat(
             val.contiguous(), seg.to(torch.int32).contiguous(),
             where.contiguous(), k.contiguous(), num_segs,
-            reduce=self._histograms)
+            reduce=self._reduce_histograms)

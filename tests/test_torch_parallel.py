@@ -60,6 +60,7 @@ from patchwork_tpu_torch import (  # noqa: E402
     PatchworkConfig, filter_ground_batched, make_filter_ground,
     make_filter_ground_batched)
 from patchwork_tpu_torch.core import device as tdevice  # noqa: E402
+from patchwork_tpu_torch.io.synthetic import split_terrain_cloud  # noqa: E402
 from patchwork_tpu_torch.parallel import (  # noqa: E402
     host_summary, initialize_multihost, is_multihost, make_mesh,
     make_sharded_filter_ground, make_sharded_pipeline, make_shardmap_fused,
@@ -308,23 +309,6 @@ def test_refine_with_ba_takes_a_mesh(group):
 # four processes: tools/torch_multihost_bench.py
 # ---------------------------------------------------------------------------
 
-def _split_scene(seed, n=SPLIT_POINTS):
-    """tests/test_engine_parity.py's recursion scene (sloped terrain with a
-    0.5 m step, box obstacles), at n points: its patches split over two
-    remap levels under the default configuration."""
-    rng = np.random.default_rng(seed)
-    n_obst = n // 6
-    pts = np.empty((n - n_obst, 3), np.float32)
-    pts[:, 0] = rng.uniform(-80, 80, n - n_obst)
-    pts[:, 1] = rng.uniform(-80, 80, n - n_obst)
-    pts[:, 2] = (0.08 * pts[:, 0] + 0.5 * (pts[:, 1] > 20)
-                 + rng.normal(0, 0.05, n - n_obst))
-    obst = rng.uniform(-40, 40, (n_obst, 2))
-    oz = rng.uniform(0.5, 3.0, n_obst)
-    return np.concatenate([pts, np.column_stack([obst, oz])]).astype(
-        np.float32)
-
-
 def _tie_scene(n=2048):
     """tests/test_shardmap.py's scene: every point above z_th, so the
     3-lowest fallback must pick the global lowest indices across shards."""
@@ -341,7 +325,8 @@ def inputs():
     xyz = np.stack([demo_point_cloud(POINTS, seed=i) for i in range(BATCH)])
     xyz_pw = np.stack([demo_point_cloud(POINTS, seed=100 + i)
                        for i in range(BATCH - 1)] + [_tie_scene()])
-    xyz_split = np.stack([_split_scene(7 + i) for i in range(2)])
+    xyz_split = np.stack([split_terrain_cloud(SPLIT_POINTS, 7 + i)
+                          for i in range(2)])
     arrays = {"xyz": xyz, "valid": np.ones(xyz.shape[:2], bool),
               "xyz_pw": xyz_pw, "valid_pw": np.ones(xyz_pw.shape[:2], bool),
               "xyz_split": xyz_split}

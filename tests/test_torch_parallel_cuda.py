@@ -26,6 +26,8 @@ from patchwork_tpu_torch.segment import segops
 
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from chip_smoke import rounds_in_parts  # noqa: E402
 
 
 @pytest.fixture
@@ -69,36 +71,6 @@ def test_free_seg_functions_on_card(dev, n, c):
     assert torch.isinf(lo[79:]).all() and (lo[79:] > 0).all()
 
 
-def _split_halves(fn, vals, seg, valid, k, s):
-    """fn with the per-round entry on two threads, each holding half of
-    every scan's points, the rounds' histograms summed between them."""
-    import threading
-
-    n = vals.shape[1] // 2
-    barrier = threading.Barrier(2, timeout=60)
-    slots, outs = [None, None], [None, None]
-
-    def run(r):
-        def reduce(h):
-            slots[r] = h
-            barrier.wait()
-            total = slots[0] + slots[1]
-            barrier.wait()
-            return total
-
-        part = slice(r * n, (r + 1) * n)
-        outs[r] = fn(vals[:, part].contiguous(), seg[:, part].contiguous(),
-                     valid[:, part].contiguous(), k, s, reduce=reduce)
-
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-    assert not any(t.is_alive() for t in threads)
-    return outs
-
-
 @pytest.mark.parametrize("kind", ["normal", "ties", "extremes"])
 def test_order_stat_rounds_on_card(dev, kind):
     """#2's per-round entry against its plain version, bit for bit, whole
@@ -130,8 +102,9 @@ def test_order_stat_rounds_on_card(dev, kind):
         *(x.cpu() for x in t), s, reduce=lambda h: h))
     used = t[3] >= 0
     assert _equal(got[used], fit_cuda.seg_order_stat(*t, s)[used])
-    for h, p in zip(_split_halves(fit_cuda.seg_order_stat, *t, s),
-                    _split_halves(fit_cuda.seg_order_stat_plain, *t, s)):
+    halves = rounds_in_parts(fit_cuda.seg_order_stat, (*t, s), 2)
+    plain = rounds_in_parts(fit_cuda.seg_order_stat_plain, (*t, s), 2)
+    for h, p in zip(halves, plain):
         assert _equal(h, p) and _equal(h, got)
 
 

@@ -7,7 +7,8 @@ tests/test_torch_parallel.py (one spawn of tools/torch_multihost_bench.py).
 Tolerances: none; every comparison is bit for bit.
 """
 
-import threading
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -15,13 +16,17 @@ import torch
 import torch.distributed as dist
 
 from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
-from patchwork_tpu_torch.io.synthetic import demo_point_cloud
+from patchwork_tpu_torch.io.synthetic import (demo_point_cloud,
+                                              split_terrain_cloud)
 from patchwork_tpu_torch.kernels import fit_cuda
 from patchwork_tpu_torch.parallel import (initialize_multihost, make_mesh,
                                           make_sharded_filter_ground,
                                           make_sharded_pipeline)
 from patchwork_tpu_torch.parallel import mesh as tmesh
 from patchwork_tpu_torch.segment import segops
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import rounds_in_parts  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -73,43 +78,6 @@ def _order_stat_inputs(kind: str, seed: int, b=2, n=3000, s=40):
             torch.from_numpy(valid), torch.from_numpy(k), cnt)
 
 
-def _across_ranks(vals, seg, valid, k, s, parts):
-    """seg_order_stat's per-round entry on ``parts`` in-process ranks, each
-    holding a contiguous block of every scan's points, each round's
-    histograms summed over them: every rank's result."""
-    n = vals.shape[1]
-    cut = np.linspace(0, n, parts + 1).astype(int)
-    barrier = threading.Barrier(parts, timeout=60)
-    slots, outs, errors = [None] * parts, [None] * parts, []
-
-    def run(r):
-        def reduce(h):
-            slots[r] = h
-            barrier.wait()
-            total = slots[0].clone()
-            for other in slots[1:]:
-                total += other
-            barrier.wait()
-            return total
-
-        a, b = cut[r], cut[r + 1]
-        try:
-            outs[r] = fit_cuda.seg_order_stat(
-                vals[:, a:b].contiguous(), seg[:, a:b].contiguous(),
-                valid[:, a:b].contiguous(), k, s, reduce=reduce)
-        except Exception as e:   # noqa: BLE001 - reported below
-            errors.append(e)
-            barrier.abort()
-
-    threads = [threading.Thread(target=run, args=(r,)) for r in range(parts)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-    assert not any(t.is_alive() for t in threads) and not errors, errors
-    return outs
-
-
 def _bits(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().view(torch.int32).numpy()
 
@@ -123,7 +91,8 @@ def test_rounds_across_ranks_equal_the_sort(kind, parts):
     want = fit_cuda.seg_order_stat_plain(vals, seg, valid, k, s)
     used = torch.from_numpy(k.numpy() >= 0)
     assert used.sum() > 0 and (~used).sum() > 0
-    outs = _across_ranks(vals, seg, valid, k, s, parts)
+    outs = rounds_in_parts(fit_cuda.seg_order_stat, (vals, seg, valid, k, s),
+                           parts)
     for got in outs:
         np.testing.assert_array_equal(_bits(got[used]), _bits(want[used]))
         np.testing.assert_array_equal(_bits(got[~used]),
@@ -144,8 +113,10 @@ def test_rounds_out_of_range_agree_across_ranks():
     s = 12
     vals, seg, valid, _, cnt = _order_stat_inputs("normal", seed=5, s=s)
     k = torch.from_numpy(np.stack([cnt[0] + 3, cnt[1] * 0]).astype(np.int32))
-    one = _across_ranks(vals, seg, valid, k, s, 1)[0]
-    for got in _across_ranks(vals, seg, valid, k, s, 4):
+    one = rounds_in_parts(fit_cuda.seg_order_stat, (vals, seg, valid, k, s),
+                          1)[0]
+    for got in rounds_in_parts(fit_cuda.seg_order_stat,
+                               (vals, seg, valid, k, s), 4):
         np.testing.assert_array_equal(_bits(got), _bits(one))
 
 
@@ -160,21 +131,6 @@ def test_all_sum_takes_integers_only(group):
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
-
-def _split_scene(n: int, seed: int) -> np.ndarray:
-    """tests/test_engine_parity.py's recursion scene at n points: sloped
-    terrain with a 0.5 m step and box obstacles, whose patches split."""
-    rng = np.random.default_rng(seed)
-    n_obst = n // 6
-    pts = np.empty((n - n_obst, 3), np.float32)
-    pts[:, 0] = rng.uniform(-80, 80, n - n_obst)
-    pts[:, 1] = rng.uniform(-80, 80, n - n_obst)
-    pts[:, 2] = (0.08 * pts[:, 0] + 0.5 * (pts[:, 1] > 20)
-                 + rng.normal(0, 0.05, n - n_obst))
-    obst = rng.uniform(-40, 40, (n_obst, 2))
-    return np.concatenate([pts, np.column_stack(
-        [obst, rng.uniform(0.5, 3.0, n_obst)])]).astype(np.float32)
-
 
 def _batch(gen, n, seeds):
     xyz = torch.from_numpy(np.stack([gen(n, s) for s in seeds]))
@@ -191,7 +147,7 @@ def test_one_rank_equals_the_engine(group, cfg):
     statistics take kernel #2's per-round entry (its plain version here)."""
     cfg = PatchworkConfig(**cfg)
     m = make_mesh(device_type="cpu")
-    xyz, valid = _batch(_split_scene, 16384, [3, 4])
+    xyz, valid = _batch(split_terrain_cloud, 16384, [3, 4])
     before = dict(segops.ORDER_STATS)
     res, g_cnt, ng_cnt = make_sharded_pipeline(cfg, m)(xyz, valid)
     taken = {k: v - before[k] for k, v in segops.ORDER_STATS.items()}
@@ -248,7 +204,7 @@ def test_no_points_cross(group, monkeypatch, adaptive):
     b, n = 2, 8192
     nodes = b * (max(cfg.max_active_nodes, cfg.num_patches) + 1)
     m = make_mesh(device_type="cpu")
-    base = np.stack([_split_scene(n, s) for s in (5, 6)])
+    base = np.stack([split_terrain_cloud(n, s) for s in (5, 6)])
     runs = []
     for rep in (1, 2):
         xyz = torch.from_numpy(np.concatenate([base] * rep, 1))
@@ -289,8 +245,35 @@ def test_deficient_ties_by_global_index(group, monkeypatch):
     assert want.any()
 
 
+def test_ranks_take_three_reductions_or_none():
+    ident = lambda t: t   # noqa: E731
+    with pytest.raises(ValueError, match="all three"):
+        segops.Ranks(sum=ident, min=ident)
+    one = tmesh.ranks_over(None, 7)
+    assert not one.across and one.first == 7
+
+
+@pytest.mark.parametrize("adaptive", [True, False],
+                         ids=["adaptive", "percentile"])
+def test_in_process_reductions_equal_the_engine(adaptive):
+    """Ranks holding identity reductions take every cross-rank route (the
+    per-round order statistic, its need masks) with no process group, and
+    give the one-process masks bit for bit."""
+    ident = lambda t: t   # noqa: E731
+    cfg = PatchworkConfig(segment_impl="scatter",
+                          adaptive_seed_height=adaptive)
+    xyz, valid = _batch(split_terrain_cloud, 8192, [11])
+    before = dict(segops.ORDER_STATS)
+    got = filter_ground_batched(xyz, valid, cfg, ranks=segops.Ranks(
+        sum=ident, min=ident, histograms=ident))
+    assert segops.ORDER_STATS["histograms"] > before["histograms"]
+    want = filter_ground_batched(xyz, valid, cfg)
+    for field in ("ground", "valid", "in_zone", "in_patch"):
+        assert torch.equal(getattr(got, field), getattr(want, field))
+
+
 def test_points_split_over_processes_take_the_generic_path():
-    xyz, valid = _batch(_split_scene, 512, [0])
+    xyz, valid = _batch(split_terrain_cloud, 512, [0])
     with pytest.raises(ValueError, match="generic path"):
         filter_ground_batched(xyz, valid, PatchworkConfig(),
                               ranks=segops.Ranks())

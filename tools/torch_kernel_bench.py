@@ -85,7 +85,8 @@ def main() -> int:
     import chip_smoke
     from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
     from patchwork_tpu_torch.core.device import card_info, cuda_device
-    from patchwork_tpu_torch.io.synthetic import velodyne_like_cloud
+    from patchwork_tpu_torch.io.synthetic import (split_terrain_cloud,
+                                                  velodyne_like_cloud)
     from patchwork_tpu_torch.kernels import _build, fit_cuda, seg_cuda
     from patchwork_tpu_torch.segment import engine
 
@@ -353,7 +354,7 @@ def main() -> int:
 
     sweeps = {}
     scenes = {"velodyne": batch(velodyne_like_cloud, B, N),
-              "split": batch(chip_smoke.split_terrain_cloud, B, N)}
+              "split": batch(split_terrain_cloud, B, N)}
     for fast in (False, True) if "sweeps" in sections else ():
         cfg = PatchworkConfig(fast_covariance=fast)
         mode = "fast" if fast else "exact"
@@ -574,7 +575,7 @@ def main() -> int:
 
     def seg_section():
         rows = {}
-        split_gen = batch(chip_smoke.split_terrain_cloud, B, N_GEN)
+        split_gen = batch(split_terrain_cloud, B, N_GEN)
         # a tree from before the binding's plan times its one route
         bound = hasattr(fit_cuda, "seg_plan")
         sums = {}
@@ -708,7 +709,7 @@ def main() -> int:
                           engine, filter_ground_batched, *gen, cfg))
     if "profiles" in sections or "scans" in sections:
         big = batch(velodyne_like_cloud, B, chip_smoke.N_BIG, num_beams=128)
-        split_gen = batch(chip_smoke.split_terrain_cloud, B, N_GEN)
+        split_gen = batch(split_terrain_cloud, B, N_GEN)
     if "profiles" in sections:
         profile_batch(f"velodyne128 B={B} N={chip_smoke.N_BIG} exact",
                       lambda: filter_ground_batched(*big, PatchworkConfig()))

@@ -33,9 +33,6 @@ of this script; they meet through a ``FileStore`` in a temporary directory
    (torch.profiler, on the card), and the cost of one ``ordered_sum`` of a
    CG iteration's (K, 6) and (L, 3) blocks.
 
-Copied into an older tree (``git archive``), the tool measures that tree's
-entry points the same way; what the tree lacks is recorded as null.
-
 If a worker fails, the launcher kills the others and exits non-zero; it
 exits non-zero too if any check fails.  On the card it builds the kernels
 before it spawns (``kernels/_build.load``), so the workers find them built.
@@ -45,9 +42,8 @@ one device); gloo's collectives on CUDA tensors go through host memory.
 Inputs: ``--inputs FILE.npz`` (arrays made from a seed by the caller) with
 any of ``xyz`` (B, N, 3) / ``valid`` (B, N) for the engines, ``xyz_pw`` /
 ``valid_pw`` for the explicit engine (default: the same scans),
-``xyz_split`` / ``valid_split`` for the sp engine's split-heavy arm (none
-by default; ``--split`` makes chip_smoke.py's split terrain;
-``--split-config-json`` its configuration), and
+``xyz_split`` / ``valid_split`` for the sp engine's split-heavy arm under
+the default configuration (no such arm without them), and
 ``ba_dense_*`` / ``ba_pcg_*`` for the two BA problems (``poses``,
 ``points``, ``obs_k``, ``obs_l``, ``obs_p``, ``obs_w``); what is missing
 comes from the port's generators (``velodyne_like_cloud`` from seeds 0..B-1,
@@ -57,7 +53,8 @@ Usage:
   python3 tools/torch_multihost_bench.py --procs 4 --device cpu \\
       --batch 4 --points 2048 --json-out mh.json
   python3 tools/torch_multihost_bench.py --procs 2 --device cuda \\
-      --backend gloo --batch 8 --points 131072 --split --json-out mh.json
+      --backend gloo --batch 8 --points 131072 --inputs split.npz \\
+      --json-out mh.json
 """
 
 from __future__ import annotations
@@ -155,6 +152,7 @@ class _Clock:
 
     def __call__(self, fn, *args, **kw):
         from patchwork_tpu_torch.kernels import fit_cuda
+        from patchwork_tpu_torch.segment import segops
 
         torch = self.torch
         if self.dev.type == "cuda":
@@ -162,7 +160,7 @@ class _Clock:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(self.dev)
         before, n0 = dict(fit_cuda.LAUNCHES), self.collectives
-        os0 = dict(_order_stats() or {})
+        os0 = dict(segops.ORDER_STATS)
         if self.dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -177,12 +175,11 @@ class _Clock:
             ms = (time.perf_counter() - t0) * 1e3
         launches = {k: v - before[k] for k, v in fit_cuda.LAUNCHES.items()
                     if v != before[k]}
-        os1 = _order_stats()
         extra = {
             "peak_mb": (torch.cuda.max_memory_allocated(self.dev) / 2 ** 20
                         if self.dev.type == "cuda" else None),
-            "order_stats": (None if os1 is None else
-                            {k: v - os0[k] for k, v in os1.items()})}
+            "order_stats": {k: v - os0[k]
+                            for k, v in segops.ORDER_STATS.items()}}
         return out, ms, launches, self.collectives - n0, extra
 
     def busy_ms(self, fn, *args, **kw):
@@ -205,14 +202,6 @@ class _Clock:
                    if ev.device_type == DeviceType.CUDA) / 1e3
 
 
-def _order_stats():
-    """segops.ORDER_STATS (order statistics taken across ranks, and the
-    histograms they reduced), or None in a tree without it."""
-    from patchwork_tpu_torch.segment import segops
-
-    return getattr(segops, "ORDER_STATS", None)
-
-
 def _inputs(args, dev) -> dict:
     import torch
     from patchwork_tpu_torch.io.synthetic import velodyne_like_cloud
@@ -224,11 +213,6 @@ def _inputs(args, dev) -> dict:
         arrays["valid"] = np.ones(arrays["xyz"].shape[:2], bool)
     arrays.setdefault("xyz_pw", arrays["xyz"])
     arrays.setdefault("valid_pw", arrays["valid"])
-    if args.split and "xyz_split" not in arrays:
-        from chip_smoke import split_terrain_cloud
-
-        arrays["xyz_split"] = np.stack([split_terrain_cloud(args.points, seed=i)
-                                        for i in range(args.batch)])
     if "xyz_split" in arrays:
         arrays.setdefault("valid_split",
                           np.ones(arrays["xyz_split"].shape[:2], bool))
@@ -332,9 +316,8 @@ def _worker(args) -> int:
                ("sp_pct", cfg.replace(adaptive_seed_height=False), xyz,
                 valid)]
     if "xyz_split" in data:
-        sp_arms.append(("sp_split", PatchworkConfig(**json.loads(
-            args.split_config_json)), data["xyz_split"],
-            data["valid_split"]))
+        sp_arms.append(("sp_split", PatchworkConfig(), data["xyz_split"],
+                        data["valid_split"]))
     for name, c, x, v in sp_arms:
         ref_sp = filter_ground_batched(x, v, c.replace(segment_impl=impl))
         fn = make_sharded_filter_ground(c, mesh_sp)
@@ -501,13 +484,6 @@ def main() -> int:
     ap.add_argument("--pw-config-json", default="{}",
                     help="PatchworkConfig.patchwork() fields of the "
                          "explicit engine")
-    ap.add_argument("--split", action="store_true",
-                    help="without xyz_split in --inputs, make the split-heavy "
-                         "batch (chip_smoke.split_terrain_cloud, seeds "
-                         "0..B-1)")
-    ap.add_argument("--split-config-json", default="{}",
-                    help="PatchworkConfig fields of the sp engine on the "
-                         "split-heavy batch (xyz_split)")
     ap.add_argument("--ba-iters", type=int, default=2)
     ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--json-out", default=None)
