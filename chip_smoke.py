@@ -57,7 +57,8 @@ Phases, one line each:
      held to the plain path; every kernel family was launched; the level
      path builds no segment plan, a generic batch at most one a bound sum;
   5. quality: the five hard labeled scenes at 65536 points (seeds 0, 1),
-     IoU within 0.001 of EVAL_r05.json in both modes;
+     IoU within 0.001 of EVAL_r05.json in both modes (by
+     tools/torch_eval_scenes.py's run);
   6. timing: scans/s of the kernel path (CUDA events) beside the plain
      path's (its run in phase 4), and of the generic path beside the level path forced on the same scans;
   7. front ends, through the entry points a user calls, built with no
@@ -121,9 +122,18 @@ Phases, one line each:
      time of an sp call, BA's poses within
      the tool's ONE_PROCESS_TOL (1e-4) of bundle_adjust and two runs equal
      bit for bit; each rank's launches per kernel family and times (CUDA
-     events) beside the card's name and power limit.
-Then a JSON line per kernel family (launches summed over phases 4, 7, 8
-and 9, phase 9's part (b) as its workers count them; seg_sum's entry
+     events) beside the card's name and power limit;
+ 10. reference: the card's exact masks against the port's NumPy oracle
+     (patchwork_tpu_torch/oracle/reference.py, run on the host): the
+     parity scenes (patchwork_tpu_torch/oracle/scenes.py) under "fused"
+     and "pallas", 0 differing bits in ground, valid, in_zone and in_patch
+     (the all-deficient scene: ground IoU > 0.95), and scan 0 of the
+     velodyne and split-terrain batches of phase 4 (131072 points, the
+     level path) and of the 128-beam velodyne batch (153600, the generic
+     path's fit_level), exact, 0 differing bits and equal to its row of the
+     batch; the oracle's seconds.
+Then a JSON line per kernel family (launches summed over phases 4, 7, 8,
+9 and 10, phase 9's part (b) as its workers count them; seg_sum's entry
 carries BA's sums; seg_order_stat_rounds, #2's per-round entry, launches
 in phase 9 only) and, last, the device line.  Exits
 non-zero, and prints no result line, if there is no CUDA device, a build
@@ -192,6 +202,17 @@ class Failures:
             self.items.append(what)
             print(f"FAIL: {what}", flush=True)
         return ok
+
+
+def tool(name: str):
+    """The module of ``tools/<name>.py``: a phase that a tool also runs
+    calls the tool's own function, so there is one code for it."""
+    import importlib
+
+    tools = os.path.join(ROOT, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
 
 
 def _clone(args):
@@ -1548,8 +1569,7 @@ def phase9(dev, card: str, fails: Failures, scenes: dict,
     from patchwork_tpu_torch.slam import (BAProblem, bundle_adjust,
                                           bundle_adjust_sharded)
 
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import torch_multihost_bench as mh
+    mh = tool("torch_multihost_bench")
 
     launches = dict.fromkeys(fit_cuda.LAUNCHES, 0)
 
@@ -1771,6 +1791,109 @@ def phase9(dev, card: str, fails: Failures, scenes: dict,
     return launches
 
 
+MASKS = ("ground", "valid", "in_zone", "in_patch")
+REFERENCE_IMPLS = ("fused", "pallas")
+# phase 10's launched families: #1 (level path), #6 (binning), #7 and #8
+# ("pallas", the generic path), #2 (the split scene's remap levels), #5 (the
+# 128-beam scan above the path gate)
+REFERENCE_FAMILIES = ("level", "seg_sum", "fit_level", "seg_gather",
+                      "seg_minmax", "seg_order_stat")
+
+
+def oracle_bits(res, outs) -> list:
+    """Differing bits of a (1, N) GroundResult's four masks against the
+    oracle's (ground, valid, in_zone, in_patch)."""
+    import numpy as np
+
+    return [int((getattr(res, m)[0].cpu().numpy() != np.asarray(o)).sum())
+            for m, o in zip(MASKS, outs)]
+
+
+def phase10(dev, fails: Failures, headline: dict) -> dict:
+    """The card's exact masks against the port's NumPy oracle
+    (``oracle/reference.py``, on the host): the parity scenes under
+    "fused" and "pallas", 0 differing bits in all four masks (the
+    all-deficient scene: IoU > 0.95 of ground, the others exact); scan 0
+    of each ``headline`` batch (label -> (xyz, valid, the batch's exact
+    ground mask from phase 4)), exact, 0 differing bits, and equal to its
+    row of the batch.  Returns the launches of the card's runs per kernel
+    family."""
+    import numpy as np
+    import torch
+    from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
+    from patchwork_tpu_torch.kernels import fit_cuda
+    from patchwork_tpu_torch.oracle.reference import filter_ground_oracle
+    from patchwork_tpu_torch.oracle.scenes import (
+        DEFICIENT_CONFIG, DEFICIENT_IOU_MIN, PARITY_SCENES,
+        all_deficient_scene)
+
+    cases = [(name, make(), kw) for name, (make, kw) in
+             sorted(PARITY_SCENES.items())]
+    cases.append(("all_deficient", all_deficient_scene(), DEFICIENT_CONFIG))
+    oracle_s = 0.0
+    launches = dict.fromkeys(fit_cuda.LAUNCHES, 0)
+
+    def on_card(xyz, cfg):
+        x = torch.from_numpy(np.ascontiguousarray(xyz))[None].to(dev)
+        v = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+        fit_cuda.reset_launches()
+        res = filter_ground_batched(x, v, cfg)
+        for k, n in fit_cuda.LAUNCHES.items():
+            launches[k] += n
+        return res
+
+    total = 0
+    for name, pts, kw in cases:
+        t0 = time.perf_counter()
+        outs = filter_ground_oracle(pts, PatchworkConfig(**kw))
+        dt = time.perf_counter() - t0
+        oracle_s += dt
+        for impl in REFERENCE_IMPLS:
+            res = on_card(pts, PatchworkConfig(segment_impl=impl, **kw))
+            bits = oracle_bits(res, outs)
+            line = (f"[10 reference] {name} ({len(pts)} points) {impl}: "
+                    f"differing bits {'/'.join(map(str, bits))} "
+                    f"(ground/valid/in_zone/in_patch); oracle {dt:.3f} s")
+            if name == "all_deficient":
+                g = res.ground[0].cpu().numpy()
+                iou = float((g & outs[0]).sum()) / max(float((g | outs[0]).sum()), 1.0)
+                print(f"{line}; ground IoU {iou:.6f}", flush=True)
+                fails.check(iou > DEFICIENT_IOU_MIN and sum(bits[1:]) == 0,
+                            f"reference {name} {impl}: IoU {iou}, bits {bits}")
+            else:
+                print(line, flush=True)
+                total += sum(bits)
+                fails.check(sum(bits) == 0,
+                            f"reference {name} {impl}: {bits} bits differ "
+                            "from the oracle")
+    for scene, (xyz, valid, batch_ground) in headline.items():
+        pts = xyz[0].cpu().numpy()
+        t0 = time.perf_counter()
+        outs = filter_ground_oracle(pts, PatchworkConfig())
+        dt = time.perf_counter() - t0
+        oracle_s += dt
+        res = on_card(pts, PatchworkConfig())
+        bits = oracle_bits(res, outs)
+        same = torch.equal(res.ground[0], batch_ground[0])
+        total += sum(bits)
+        print(f"[10 reference] {scene} scan 0 of B={xyz.shape[0]} x "
+              f"{xyz.shape[1]} exact: differing bits "
+              f"{'/'.join(map(str, bits))}; equal to its row of phase 4's "
+              f"batch: {same}; oracle {dt:.3f} s", flush=True)
+        fails.check(sum(bits) == 0 and same,
+                    f"reference {scene} scan 0: {bits} bits differ from the "
+                    f"oracle, or from the batch ({same})")
+    print(f"[10 reference] {len(cases)} parity scenes x {len(REFERENCE_IMPLS)}"
+          f" impls and {len(headline)} headline scans: {total} differing "
+          f"bits; "
+          f"oracle {oracle_s:.2f} s in all; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for fam in REFERENCE_FAMILIES:
+        fails.check(launches[fam] > 0,
+                    f"kernel family {fam} never launched in phase 10")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1783,7 +1906,7 @@ def main() -> int:
         PatchworkConfig, RecursivePatchwork, filter_ground_batched)
     from patchwork_tpu_torch.core.device import card_info, cuda_device
     from patchwork_tpu_torch.io.synthetic import (
-        HARD_SCENES, hard_labeled_scene, split_terrain_cloud,
+        HARD_SCENES, split_terrain_cloud,
         velodyne_like_cloud)
     from patchwork_tpu_torch.kernels import _build, fit_cuda, seg_cuda
     from patchwork_tpu_torch.segment import binning, engine
@@ -2308,18 +2431,12 @@ def main() -> int:
     stamp("5 quality")
     with open(os.path.join(ROOT, "EVAL_r05.json")) as f:
         ref = json.load(f)["scenes"]
+    evaluated = tool("torch_eval_scenes").run(HARD_POINTS, 2, dev,
+                                              log=lambda msg: None)["scenes"]
     for name in HARD_SCENES:
-        scenes = [hard_labeled_scene(name, HARD_POINTS, seed=s) for s in (0, 1)]
-        xyz = torch.from_numpy(np.stack([s[0] for s in scenes])).to(dev)
-        valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
         line = []
-        for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
-            g = filter_ground_batched(xyz, valid, cfg).ground.cpu().numpy()
-            ious = []
-            for gi, (_, lab) in zip(g, scenes):
-                tp = float((gi & lab).sum())
-                ious.append(tp / max(float((gi | lab).sum()), 1.0))
-            iou = float(np.mean(ious))
+        for mode in ("exact", "fast"):
+            iou = evaluated[name][mode]["iou"]
             want = ref[name][mode]["iou"]
             line.append(f"{mode} {iou:.4f} (EVAL {want})")
             fails.check(abs(iou - want) <= IOU_EVAL_TOL,
@@ -2358,6 +2475,14 @@ def main() -> int:
     launches_par = phase9(dev, card, fails, {"velodyne": velo, "split": split},
                           ba_session)
     launches = {k: launches[k] + launches_par[k] for k in launches}
+
+    # ---- 10. the card against the reference algorithm ----
+    stamp("10 reference")
+    launches_ref = phase10(dev, fails, {
+        "velodyne": velo + (masks[("velodyne", "exact")],),
+        "split": split + (masks[("split", "exact")],),
+        "velodyne128": velo_gen + (gen[("velodyne128", "exact")],)})
+    launches = {k: launches[k] + launches_ref[k] for k in launches}
 
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed",

@@ -18,7 +18,7 @@ import torch
 
 from .types import tensor_leaves
 
-__all__ = ["Timer", "StageTimes", "sync", "trace_annotation"]
+__all__ = ["Timer", "StageTimes", "sync", "trace_annotation", "time_ms"]
 
 
 def sync(tree) -> None:
@@ -91,3 +91,26 @@ class StageTimes:
 def trace_annotation(name: str):
     """A ``torch.profiler`` range (costs little when nothing traces)."""
     return torch.profiler.record_function(name)
+
+
+def time_ms(fn, reps: int = 10, device=None, warm: int = 1) -> float:
+    """Mean milliseconds of a call ``fn()``, after ``warm`` untimed calls:
+    CUDA events around ``reps`` calls on a CUDA ``device``, the host clock
+    on the CPU."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    for _ in range(warm):
+        fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps

@@ -1035,3 +1035,22 @@ def test_segops_binding_builds_one_plan(dev):
         again = ops.sum(xyz)
     side.synchronize()
     assert _equal(again, ref.sum(xyz))
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+@pytest.mark.parametrize("scene", ["split", "percentile_split"])
+def test_card_masks_match_the_numpy_oracle(dev, scene, impl):
+    # the card's exact masks against the port's own NumPy oracle, every bit
+    # of all four masks (chip_smoke.py phase 10 runs every parity scene)
+    from patchwork_tpu_torch.oracle.reference import filter_ground_oracle
+    from patchwork_tpu_torch.oracle.scenes import PARITY_SCENES
+
+    make, kw = PARITY_SCENES[scene]
+    pts = make()
+    outs = filter_ground_oracle(pts, PatchworkConfig(**kw))
+    x = torch.from_numpy(pts)[None].to(dev)
+    v = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+    res = filter_ground_batched(x, v, PatchworkConfig(segment_impl=impl, **kw))
+    for name, want in zip(("ground", "valid", "in_zone", "in_patch"), outs):
+        np.testing.assert_array_equal(getattr(res, name)[0].cpu().numpy(),
+                                      want, err_msg=name)

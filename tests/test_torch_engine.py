@@ -11,61 +11,15 @@ pytest.importorskip("jax")
 from patchwork_tpu import PatchworkConfig as JaxConfig  # noqa: E402
 from patchwork_tpu.oracle.reference import filter_ground_oracle  # noqa: E402
 from patchwork_tpu_torch import PatchworkConfig, filter_ground  # noqa: E402
-from patchwork_tpu_torch.io.synthetic import (  # noqa: E402
-    demo_point_cloud, velodyne_like_cloud)
+from patchwork_tpu_torch.io.synthetic import demo_point_cloud  # noqa: E402
+from patchwork_tpu_torch.oracle import reference  # noqa: E402
+from patchwork_tpu_torch.oracle.scenes import (  # noqa: E402
+    DEFICIENT_CONFIG, DEFICIENT_IOU_MIN, PARITY_SCENES, all_deficient_scene)
 
 torch.set_num_threads(1)
 
 
-def _split_scene():
-    # sloped terrain + height step -> residual-triggered splits to depth 3
-    rng = np.random.default_rng(7)
-    n = 20000
-    pts = np.empty((n, 3), np.float32)
-    pts[:, 0] = rng.uniform(-80, 80, n)
-    pts[:, 1] = rng.uniform(-80, 80, n)
-    pts[:, 2] = 0.08 * pts[:, 0] + 0.5 * (pts[:, 1] > 20) + rng.normal(0, 0.05, n)
-    obst = rng.uniform(-40, 40, (4000, 2))
-    oz = rng.uniform(0.5, 3.0, 4000)
-    return np.concatenate(
-        [pts, np.column_stack([obst, oz]).astype(np.float32)]).astype(np.float32)
-
-
-def _nan_scene():
-    pts = demo_point_cloud(4096, seed=0).copy()
-    pts[::37] = np.nan
-    pts[5, 2] = np.inf
-    return pts
-
-
-def _bimodal_far_scene(n=24000, seed=5):
-    rng = np.random.default_rng(seed)
-    r = rng.uniform(90, 149, n)
-    a = rng.uniform(0, 2 * np.pi, n)
-    pts = np.empty((n, 3), np.float32)
-    pts[:, 0] = r * np.cos(a)
-    pts[:, 1] = r * np.sin(a)
-    pts[:, 2] = 0.528 * (rng.random(n) > 0.5)
-    return pts
-
-
-SCENES = {
-    "default_demo": (lambda: demo_point_cloud(10000, seed=1), {}),
-    "split": (_split_scene, {}),
-    "nan": (_nan_scene, {}),
-    "velodyne": (lambda: velodyne_like_cloud(16384, seed=0), {}),
-    "ten_points": (lambda: demo_point_cloud(10, seed=0), {}),
-    "non_adaptive": (lambda: demo_point_cloud(8000, seed=42),
-                     dict(adaptive_seed_height=False, filtering_radius=60.0)),
-    "percentile_split": (_bimodal_far_scene,
-                         dict(adaptive_seed_height=False, th_dist=0.24,
-                              th_seeds=0.9, max_iter=1)),
-    "percentile_deficient": (lambda: demo_point_cloud(8000, seed=9),
-                             dict(adaptive_seed_height=False,
-                                  seed_percentile=0.0001, th_seeds=-10.0)),
-    "testsuite": (lambda: demo_point_cloud(5000, seed=42),
-                  dict(filtering_radius=50.0, num_sectors=8, max_iter=50)),
-}
+SCENES = PARITY_SCENES
 
 
 def _run(pts, kw, valid=None):
@@ -86,15 +40,28 @@ def test_exact_masks_match_oracle(name):
     np.testing.assert_array_equal(res.ground.numpy(), g_o)
 
 
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_exact_masks_match_port_oracle(name):
+    # the same scenes against the port's own NumPy oracle, which the card's
+    # masks are held to where JAX is not installed
+    make, kw = SCENES[name]
+    pts = make()
+    outs = reference.filter_ground_oracle(pts, PatchworkConfig(**kw))
+    res = _run(pts, kw)
+    for got, want in zip((res.ground, res.valid, res.in_zone, res.in_patch),
+                         outs):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_all_deficient_iou():
     # every adaptive seed threshold lies below all points: 3-point seed
     # fits are ill-conditioned, so oracle parity is IoU-level (PARITY.md)
-    pts = demo_point_cloud(3000, seed=5).copy()
-    pts[:, 2] += 2.0
-    kw = dict(filtering_radius=60.0)
-    g_o, *_ = filter_ground_oracle(pts, JaxConfig(**kw))
+    pts = all_deficient_scene()
+    kw = DEFICIENT_CONFIG
     g = _run(pts, kw).ground.numpy()
-    assert (g & g_o).sum() / max((g | g_o).sum(), 1) > 0.95
+    for g_o in (filter_ground_oracle(pts, JaxConfig(**kw))[0],
+                reference.filter_ground_oracle(pts, PatchworkConfig(**kw))[0]):
+        assert (g & g_o).sum() / max((g | g_o).sum(), 1) > DEFICIENT_IOU_MIN
 
 
 def test_validity_mask_padding():

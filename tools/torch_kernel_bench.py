@@ -43,7 +43,10 @@ Sections (all by default; ``--sections gather,sweeps`` runs some):
               its bound (a tree from before the plan times its one route);
 ``profiles``  one profiled batch per path (device busy time, host span,
               idle share, top kernels), 262144 points and split terrain
-              at 153600 on the generic path included;
+              at 153600 on the generic path included; and on the velodyne
+              batch its binning alone and the level-0 prologue (binning to
+              the first level launch: fast shift, tau and z_th, level 0's
+              pack and tables), tools/profile_fused.py's stages;
 ``scans``     scans/s of ``filter_ground_batched`` at B=8 (CUDA events, 10
               batches after a warm-up): velodyne at 131072 points, 128-beam
               velodyne at 153600 on the generic path and with the level
@@ -88,7 +91,7 @@ def main() -> int:
     from patchwork_tpu_torch.io.synthetic import (split_terrain_cloud,
                                                   velodyne_like_cloud)
     from patchwork_tpu_torch.kernels import _build, fit_cuda, seg_cuda
-    from patchwork_tpu_torch.segment import engine
+    from patchwork_tpu_torch.segment import binning, engine
 
     dev = cuda_device()
     card = card_info().splitlines()[0]
@@ -696,10 +699,31 @@ def main() -> int:
               f"{span:.2f} ms span, idle share {1 - busy / span:.3f}; {top}",
               flush=True)
 
+    class _FirstLevel(Exception):
+        pass
+
+    def prologue(data, cfg):
+        """Everything before the level path's first level launch: binning,
+        the fast shift, tau and z_th, level 0's pack and tables."""
+        def stop(*a, **kw):
+            raise _FirstLevel
+
+        saved, engine.level = engine.level, stop
+        try:
+            filter_ground_batched(*data, cfg)
+        except _FirstLevel:
+            pass
+        finally:
+            engine.level = saved
+
     velo = scenes["velodyne"]
     for fast in (False, True) if "profiles" in sections else ():
         cfg = PatchworkConfig(fast_covariance=fast)
         mode = "fast" if fast else "exact"
+        profile_batch(f"velodyne B={B} N={N} {mode}, binning",
+                      lambda: binning.assign_patches(*velo, cfg))
+        profile_batch(f"velodyne B={B} N={N} {mode}, level-0 prologue",
+                      lambda: prologue(velo, cfg))
         profile_batch(f"velodyne B={B} N={N} {mode}, level path",
                       lambda: filter_ground_batched(*velo, cfg))
         profile_batch(f"velodyne128 B={B} N={N_GEN} {mode}, generic path",

@@ -3,10 +3,11 @@
 a ``torch.distributed`` group each, and hold every sharded entry point to
 the same computation run on one process.
 
-The counterpart of tools/multihost_bench.py's launcher and parity worker
-(its scaling arms are not ported).  The launcher spawns ``--procs`` workers
-of this script; they meet through a ``FileStore`` in a temporary directory
-(no port, so parallel runs cannot collide).  Every worker:
+The counterpart of tools/multihost_bench.py: its launcher, parity worker
+and, with ``--scaling``, its weak-scaling arms (below).  The launcher
+spawns ``--procs`` workers of this script; they meet through a
+``FileStore`` in a temporary directory (no port, so parallel runs cannot
+collide).  Every worker:
 
 1. joins the group (``parallel.initialize_multihost``) and builds two
    meshes: (P, 1) for the scan-sharded engine and bundle adjustment, and
@@ -49,9 +50,20 @@ the default configuration (no such arm without them), and
 comes from the port's generators (``velodyne_like_cloud`` from seeds 0..B-1,
 :func:`synthetic_ba`).
 
+``--scaling``: at each P of ``--scaling-procs``, P ranks in one group run
+the dp engine (``make_sharded_pipeline``, whole scans, SCANS_PER_RANK a
+rank, a fixed number of steps in lockstep) and ``bundle_adjust_sharded`` on
+P x ``--ba-obs`` observations, then P processes with no group run the same
+load a process (``filter_ground_batched``, ``bundle_adjust``) in a time box
+entered through a file barrier; comm_efficiency is the group's aggregate
+scans/s over theirs (what the shared cores cost cancels in the ratio).  On
+one card or the CPU this checks the mechanism, not scaling between cards.
+
 Usage:
   python3 tools/torch_multihost_bench.py --procs 4 --device cpu \\
       --batch 4 --points 2048 --json-out mh.json
+  python3 tools/torch_multihost_bench.py --scaling --scaling-procs 1,2,4 \\
+      --device cpu --points 2048 --json-out scaling.json
   python3 tools/torch_multihost_bench.py --procs 2 --device cuda \\
       --backend gloo --batch 8 --points 131072 --inputs split.npz \\
       --json-out mh.json
@@ -77,9 +89,12 @@ BA_KEYS = ("poses", "points", "obs_k", "obs_l", "obs_p", "obs_w")
 SP = 2   # the point-sharded engines' mesh: (procs / 2, 2)
 # largest |pose difference| of sharded BA against bundle_adjust on one
 # process.  The two add the same partials in another order; sound runs read
-# up to 2.9e-6 (dense) and, where the CG stops on another iteration, up to
-# 6.8e-4 (PCG at 1000 keyframes on the CPU; 1.8e-5 on the card).  Every
-# rank summing the same block instead moves the poses by 0.08-0.17
+# up to 2.9e-6 (dense) and 1.8e-5 (PCG at 1000 keyframes on the card).  On
+# the CPU the PCG problem at 1000 keyframes reads 6.8e-4 at two ranks and
+# 1.2e-3 at four, above this limit: BA's CPU sums difference one prefix sum
+# over all observations, which a rank takes over its own block only
+# (tools/torch_ba_bench.py --margin; the JAX package reads 1.5e-3 at four).
+# Every rank summing the same block instead moves the poses by 0.08-0.17
 # (PERF.md).
 ONE_PROCESS_TOL = {"dense": 1e-4, "pcg": 1e-3}
 
@@ -236,11 +251,22 @@ def _same_bits(a, b) -> bool:
                        b.contiguous().view(torch.int32))
 
 
+def _worker_device(args, rank: int):
+    import torch
+    from patchwork_tpu_torch.core.device import cuda_device
+
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+        return torch.device("cpu")
+    dev = cuda_device(rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def _worker(args) -> int:
     import torch
     import torch.distributed as dist
     from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
-    from patchwork_tpu_torch.core.device import cuda_device
     from patchwork_tpu_torch.parallel import (
         host_summary, initialize_multihost, is_multihost, make_mesh,
         make_sharded_filter_ground, make_sharded_pipeline,
@@ -252,12 +278,7 @@ def _worker(args) -> int:
                                           bundle_adjust_sharded)
 
     rank, procs = args.worker, args.procs
-    if args.device == "cpu":
-        torch.set_num_threads(1)
-        dev = torch.device("cpu")
-    else:
-        dev = cuda_device(rank % torch.cuda.device_count())
-        torch.cuda.set_device(dev)
+    dev = _worker_device(args, rank)
     if not initialize_multihost(f"file://{args.store}", procs, rank,
                                 backend=args.backend):
         raise RuntimeError("the worker did not join the process group")
@@ -391,30 +412,180 @@ def _worker(args) -> int:
 
 
 # ---------------------------------------------------------------------------
+# scaling workers (tools/multihost_bench.py --scaling)
+# ---------------------------------------------------------------------------
+
+SCANS_PER_RANK = 2     # the per-rank load, constant as the ranks grow
+BA_OBS_BASE = 8192     # observations a rank holds in the BA arm
+BA_KL = (50, 64)       # poses and landmarks of the BA arm, fixed
+
+
+def _scale_batch(points: int, b: int, dev):
+    """B demo scans of ``points`` (tools/multihost_bench.py's scaling
+    workload) on ``dev``."""
+    import torch
+    from patchwork_tpu_torch.io.synthetic import demo_point_cloud
+
+    xyz = torch.from_numpy(np.stack([demo_point_cloud(points, seed=i)
+                                     for i in range(b)])).to(dev)
+    return xyz, torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
+
+
+def _ba_problem(obs: int, multiple: int, dev):
+    from patchwork_tpu_torch.slam import BAProblem
+
+    a = _pad_obs(synthetic_ba(*BA_KL, obs), multiple)
+    return BAProblem.from_numpy(*(a[k] for k in BA_KEYS), device=dev)
+
+
+def _steps(fn, steps: int, dev):
+    """``steps`` calls of ``fn``, the last one waited for: (t0, t1) on the
+    host's monotonic clock, which every process of the host shares."""
+    import torch
+
+    t0 = time.monotonic()
+    for _ in range(steps):
+        fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return t0, time.monotonic()
+
+
+def _timebox(fn, dev, box_s: float):
+    """Calls of ``fn`` (each waited for) until ``box_s`` have passed:
+    (steps, t0, t1).  Independent processes start it together after a
+    barrier, so the launcher can divide their scans by the makespan."""
+    steps, t0 = 0, time.monotonic()
+    while True:
+        _steps(fn, 1, dev)
+        steps += 1
+        t1 = time.monotonic()
+        if t1 - t0 >= box_s:
+            return steps, t0, t1
+
+
+def _file_barrier(directory: str, rank: int, procs: int,
+                  timeout_s: float = 600.0) -> bool:
+    """Every worker's ready file present (no process group needed)."""
+    open(os.path.join(directory, f"ready_{rank}"), "w").close()
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        if all(os.path.exists(os.path.join(directory, f"ready_{i}"))
+               for i in range(procs)):
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def _worker_scale(args) -> int:
+    """Distributed arm: ``--procs`` ranks in one group, a (P / sp, sp) mesh,
+    ``make_sharded_pipeline`` on SCANS_PER_RANK scans a dp rank (whole
+    scans at sp 1, the point-sharded engine above), a fixed number of steps
+    (each joins the masks across the ranks, so they run in lockstep); with
+    ``--ba-obs``, ``bundle_adjust_sharded`` on P x that many observations."""
+    import torch.distributed as dist
+    from patchwork_tpu_torch import PatchworkConfig
+    from patchwork_tpu_torch.parallel import (initialize_multihost, make_mesh,
+                                              make_sharded_pipeline)
+    from patchwork_tpu_torch.slam import bundle_adjust_sharded
+
+    rank, procs, sp = args.worker, args.procs, args.sp
+    dev = _worker_device(args, rank)
+    if not initialize_multihost(f"file://{args.store}", procs, rank,
+                                backend=args.backend):
+        raise RuntimeError("the worker did not join the process group")
+    mesh = make_mesh(procs, dp=procs // sp, sp=sp, device_type=dev.type)
+    b = SCANS_PER_RANK * (procs // sp)
+    xyz, valid = _scale_batch(args.points, b, dev)
+    fn = make_sharded_pipeline(PatchworkConfig(), mesh, shard_points=sp > 1)
+    fn(xyz, valid)
+    dist.barrier()
+    t0, t1 = _steps(lambda: fn(xyz, valid), args.bench_reps, dev)
+    rec = {"rank": rank, "procs": procs, "sp": sp, "scans": args.bench_reps * b,
+           "window": [t0, t1], "ms_per_step": (t1 - t0) * 1e3 / args.bench_reps}
+    if args.ba_obs:
+        prob = _ba_problem(args.ba_obs * procs, procs, dev)
+        mesh_dp = make_mesh(procs, dp=procs, sp=1, device_type=dev.type)
+
+        def solve():
+            return bundle_adjust_sharded(prob, mesh_dp, iters=2, solver="pcg")
+
+        solve()
+        dist.barrier()
+        b0, b1 = _steps(solve, args.ba_steps, dev)
+        rec.update(ba_obs=args.ba_obs * procs, ba_window=[b0, b1],
+                   ba_solve_s=(b1 - b0) / args.ba_steps)
+    with open(args.result, "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _worker_independent(args) -> int:
+    """Control arm: the same per-rank load in a process of its own (no
+    group, no collective), ``filter_ground_batched`` on SCANS_PER_RANK
+    scans, timeboxed after a file barrier; with ``--ba-obs``,
+    ``bundle_adjust`` on that many observations."""
+    from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
+    from patchwork_tpu_torch.slam import bundle_adjust
+
+    rank, procs = args.worker, args.procs
+    dev = _worker_device(args, rank)
+    xyz, valid = _scale_batch(args.points, SCANS_PER_RANK, dev)
+    cfg = PatchworkConfig()
+    filter_ground_batched(xyz, valid, cfg)
+    synced = _file_barrier(args.barrier_dir, rank, procs)
+    steps, t0, t1 = _timebox(lambda: filter_ground_batched(xyz, valid, cfg),
+                             dev, args.box_s)
+    rec = {"rank": rank, "barrier_ok": synced,
+           "scans": steps * SCANS_PER_RANK, "window": [t0, t1],
+           "ms_per_step": (t1 - t0) * 1e3 / steps}
+    if args.ba_obs:
+        prob = _ba_problem(args.ba_obs, 1, dev)
+
+        def solve():
+            return bundle_adjust(prob, iters=2, solver="pcg")
+
+        solve()
+        _file_barrier(args.barrier_dir + "_ba", rank, procs)
+        steps, b0, b1 = _timebox(solve, dev, args.box_s)
+        rec.update(ba_obs=args.ba_obs, ba_window=[b0, b1],
+                   ba_solve_s=(b1 - b0) / steps)
+    with open(args.result, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # launcher
 # ---------------------------------------------------------------------------
 
-def _run_workers(args, tmp: str) -> list:
-    """Spawn the workers; kill all of them as soon as one fails or at the
-    time limit.  Returns their records, or raises."""
+def _run_workers(args, tmp: str, procs: int | None = None,
+                 argv: list | None = None) -> list:
+    """Spawn ``procs`` workers (``args.procs`` by default) of this script
+    with the command line ``argv`` (this process's by default); kill all of
+    them as soon as one fails or at the time limit.  Returns their records,
+    or raises."""
+    procs = args.procs if procs is None else procs
     store = os.path.join(tmp, "store")
-    common = sys.argv[1:]
+    common = sys.argv[1:] if argv is None else [str(a) for a in argv]
     # every worker runs on this host: gloo's pairs over the loopback device
     env = dict(os.environ)
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    procs, logs = [], []
+    workers, logs = [], []
     try:
-        for i in range(args.procs):
+        for i in range(procs):
             log = open(os.path.join(tmp, f"worker{i}.log"), "w")
             logs.append(log)
-            procs.append(subprocess.Popen(
+            workers.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), *common,
-                 "--worker", str(i), "--store", store,
+                 "--procs", str(procs), "--worker", str(i), "--store", store,
                  "--result", os.path.join(tmp, f"worker{i}.json")],
                 stdout=log, stderr=subprocess.STDOUT, cwd=REPO, env=env))
         deadline = time.monotonic() + args.timeout
         while True:
-            rcs = [p.poll() for p in procs]
+            rcs = [p.poll() for p in workers]
             bad = [i for i, rc in enumerate(rcs) if rc not in (None, 0)]
             if bad or time.monotonic() > deadline:
                 why = (f"worker {bad[0]} exited {rcs[bad[0]]}" if bad
@@ -424,21 +595,21 @@ def _run_workers(args, tmp: str) -> list:
                 tails = "".join(
                     f"--- worker {i} ---\n"
                     + open(os.path.join(tmp, f"worker{i}.log")).read()[-3000:]
-                    for i in (bad or range(args.procs)))
+                    for i in (bad or range(procs)))
                 raise RuntimeError(f"{why}:\n{tails}")
             if all(rc == 0 for rc in rcs):
                 break
             time.sleep(0.05)
     finally:
-        for p in procs:
+        for p in workers:
             if p.poll() is None:
                 p.kill()
-        for p in procs:
+        for p in workers:
             p.wait()
         for log in logs:
             log.close()
     return [json.load(open(os.path.join(tmp, f"worker{i}.json")))
-            for i in range(args.procs)]
+            for i in range(procs)]
 
 
 def _launch(args) -> int:
@@ -471,6 +642,98 @@ def _launch(args) -> int:
     return 0 if doc["all_ok"] else 1
 
 
+def scale_arm(args, mode: str, procs: int, sp: int = 1,
+              ba_obs: int = 0) -> list:
+    """One arm of the scaling runs: ``procs`` workers in ``mode`` ("scale"
+    or "independent"), their records."""
+    tmp = tempfile.mkdtemp(prefix="torch_scaling_")
+    barrier = os.path.join(tmp, "barrier")
+    for d in (barrier, barrier + "_ba"):
+        os.makedirs(d)
+    argv = ["--mode", mode, "--sp", sp, "--points", args.points,
+            "--device", args.device, "--backend", args.backend,
+            "--bench-reps", args.bench_reps, "--ba-obs", ba_obs,
+            "--ba-steps", args.ba_steps, "--box-s", args.box_s,
+            "--barrier-dir", barrier, "--timeout", args.timeout]
+    try:
+        return _run_workers(args, tmp, procs, argv)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _makespan(rows, key="window"):
+    return (max(r[key][1] for r in rows) - min(r[key][0] for r in rows))
+
+
+def _scaling(args) -> int:
+    """Weak scaling of the dp engine against independent processes
+    (tools/multihost_bench.py's ``--scaling``): at each P, P ranks in one
+    group (every step joins the masks) and P processes with no group, each
+    rank SCANS_PER_RANK scans; comm_efficiency = the group's aggregate
+    scans/s over the independent processes' (both share the host's cores,
+    so what the cores cost cancels in the ratio).  The BA arm: the group
+    solves P x BA_OBS_BASE observations with bundle_adjust_sharded, each
+    independent process BA_OBS_BASE with bundle_adjust."""
+    import statistics
+
+    if args.device == "cuda":
+        from patchwork_tpu_torch.kernels import _build
+
+        _build.load()
+    rows = []
+    for p in (int(v) for v in args.scaling_procs.split(",")):
+        t0 = time.perf_counter()
+        try:
+            dist_rows = scale_arm(args, "scale", p, ba_obs=args.ba_obs)
+            indep = scale_arm(args, "independent", p, ba_obs=args.ba_obs)
+        except RuntimeError as e:
+            print(f"torch_multihost_bench: {e}", file=sys.stderr)
+            return 1
+        # every rank of the group counted the whole batch
+        dist_rate = sum(r["scans"] for r in dist_rows) / p / _makespan(
+            dist_rows)
+        ispan = _makespan(indep)
+        indep_rate = sum(r["scans"] for r in indep) / ispan
+        shared = (min(r["window"][1] for r in indep)
+                  - max(r["window"][0] for r in indep))
+        row = {"procs": p, "dp_dist_scans_per_s": dist_rate,
+               "dp_indep_aggregate_scans_per_s": indep_rate,
+               "dp_comm_efficiency": dist_rate / indep_rate,
+               "indep_window_overlap": shared / ispan if ispan > 0 else 0.0,
+               "barriers_ok": all(r["barrier_ok"] for r in indep),
+               "wall_s": time.perf_counter() - t0}
+        row["overlap_valid"] = row["indep_window_overlap"] >= 0.7
+        if args.ba_obs:
+            t_dist = statistics.median(r["ba_solve_s"] for r in dist_rows)
+            t_ind = statistics.median(r["ba_solve_s"] for r in indep)
+            row.update(ba_obs_global=args.ba_obs * p,
+                       ba_dist_solve_s=t_dist, ba_indep_solve_s=t_ind,
+                       ba_comm_efficiency=t_ind / t_dist)
+        rows.append(row)
+        print(f"# P={p}: dp comm-eff {row['dp_comm_efficiency']:.3f}, BA "
+              f"comm-eff {row.get('ba_comm_efficiency', float('nan')):.3f}",
+              file=sys.stderr)
+    doc = {"comment": (
+        "Weak scaling of the dp engine against independent processes, "
+        f"{args.device}, {args.backend}; every rank of a host shares its "
+        "cores (and on one card its card), so the efficiencies check the "
+        "mechanism, not the scaling between cards"),
+        "host_cores": os.cpu_count(), "points": args.points,
+        "scans_per_rank": SCANS_PER_RANK, "ba_obs_per_rank": args.ba_obs,
+        "rows": rows}
+    valid = [r for r in rows if r["overlap_valid"]] or rows
+    print(json.dumps({
+        "metric": "dp_comm_efficiency_worst",
+        "value": min(r["dp_comm_efficiency"] for r in valid),
+        "unit": "ratio", "procs": [r["procs"] for r in rows],
+        "device": args.device,
+        "ba_comm_efficiency": [r.get("ba_comm_efficiency") for r in rows]}))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(doc, f, indent=1)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--procs", type=int, default=2)
@@ -489,10 +752,34 @@ def main() -> int:
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--arrays-out", default=None,
                     help="rank 0's masks and BA results, .npz")
+    ap.add_argument("--scaling", action="store_true",
+                    help="weak scaling of the dp engine against independent "
+                         "processes at each of --scaling-procs")
+    ap.add_argument("--scaling-procs", default="1,2,4")
+    ap.add_argument("--bench-reps", type=int, default=8,
+                    help="--scaling: steps of the group's timed window")
+    ap.add_argument("--box-s", type=float, default=10.0,
+                    help="--scaling: seconds of an independent process's "
+                         "timed window")
+    ap.add_argument("--ba-obs", type=int, default=BA_OBS_BASE,
+                    help="--scaling: BA observations a rank (0: no BA arm)")
+    ap.add_argument("--ba-steps", type=int, default=4,
+                    help="--scaling: solves of the group's BA window")
     ap.add_argument("--worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--result", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mode", default="full",
+                    choices=["full", "scale", "independent"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sp", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--barrier-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mode == "scale":
+        return _worker_scale(args)
+    if args.mode == "independent":
+        return _worker_independent(args)
+    if args.scaling:
+        return _scaling(args)
     if args.procs % SP:
         ap.error(f"--procs {args.procs}: the point-sharded engines' mesh "
                  f"has sp {SP}, so --procs must divide by {SP}")
