@@ -131,7 +131,13 @@ Phases, one line each:
      velodyne and split-terrain batches of phase 4 (131072 points, the
      level path) and of the 128-beam velodyne batch (153600, the generic
      path's fit_level), exact, 0 differing bits and equal to its row of the
-     batch; the oracle's seconds.
+     batch; the oracle's seconds;
+ 11. benchmark: bench_torch.py --reps BENCH_REPS as a process (the port's
+     one-line benchmark: bench.py's four cells, each held to the plain
+     path and the oracle or exact mode before it is timed): exit 0, one
+     JSON line on stdout with "correct": true, the device name torch's, and
+     the level and seg_sum families launched in every cell; its cells on
+     one line each.
 Then a JSON line per kernel family (launches summed over phases 4, 7, 8,
 9 and 10, phase 9's part (b) as its workers count them; seg_sum's entry
 carries BA's sums; seg_order_stat_rounds, #2's per-round entry, launches
@@ -175,6 +181,11 @@ JAX_SLAM_200KF_CPU = {"ate_odometry_m": 2.1207, "ate_posegraph_m": 0.2112,
                       "n_landmarks": 271, "n_obs": 41191}
 # phase 9: Gauss-Newton steps of the sharded BA runs
 MH_BA_ITERS = 2
+# phase 11: back-to-back batches in a sample of bench_torch.py
+BENCH_REPS = 5
+# phase 11: kernel families every cell of bench_torch.py launches (its
+# cells are below the path gate: the level path and binning's sum)
+BENCH_FAMILIES = ("level", "seg_sum")
 SUM_RTOL, SUM_ATOL = 1e-5, 1e-3   # float sums; the design adds in one order
 IOU_FAST_MIN = 0.999
 IOU_EVAL_TOL = 0.001
@@ -927,26 +938,11 @@ def _device_ms(fn, reps: int, pattern: str, count: bool = False):
     """Mean device time per call (torch.profiler) of the kernels whose
     name matches ``pattern``; None where the profiler saw none.  With
     ``count`` also the number of those kernels per call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from patchwork_tpu_torch.core.timing import device_busy_ms
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    # kernels only: the host-side op of a PyTorch call carries the device
-    # time of the kernels it launched as its own
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA and re.search(pattern, ev.key)]
-    total = sum(getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-                for ev in evs)
-    ms = total / reps / 1e3 if total > 0 else None
-    return (ms, sum(ev.count for ev in evs) / reps) if count else ms
+    window = device_busy_ms(fn, reps, pattern)
+    ms = window.busy_ms if window.busy_ms > 0 else None
+    return (ms, window.kernels) if count else ms
 
 
 def scans_per_s(xyz, valid, cfg, plain, reps, warm=True):
@@ -1894,6 +1890,46 @@ def phase10(dev, fails: Failures, headline: dict) -> dict:
     return launches
 
 
+def phase11(fails: Failures) -> None:
+    """bench_torch.py as a process, held to its contract: exit 0, one JSON
+    line on stdout, correct, on this card, each cell through the kernels."""
+    import torch
+
+    torch.cuda.empty_cache()    # the card's free memory to the process
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py"), "--reps",
+         str(BENCH_REPS)], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    lines = proc.stdout.splitlines()
+    print(f"[11 bench] python3 bench_torch.py --reps {BENCH_REPS}: rc "
+          f"{proc.returncode}, {len(lines)} stdout line(s), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        line = json.loads(lines[-1]) if len(lines) == 1 else None
+    except ValueError:
+        line = None
+    if proc.returncode != 0 or line is None:
+        print(proc.stdout[-2000:] + proc.stderr[-4000:], flush=True)
+    fails.check(proc.returncode == 0 and line is not None,
+                "bench_torch.py: non-zero exit or not one JSON line")
+    if line is None:
+        return
+    for name, cell in line["cells"].items():
+        print(f"[11 bench] {name}: {json.dumps(cell)}", flush=True)
+        for fam in BENCH_FAMILIES:
+            fails.check(cell["launches"].get(fam, 0) > 0,
+                        f"bench_torch.py {name}: kernel family {fam} never "
+                        "launched")
+    print(f"[11 bench] {line['metric']} {line['value']} {line['unit']}, "
+          f"vs_baseline {line['vs_baseline']}, correct {line['correct']}, "
+          f"device {line['device']}; extra {line['extra']}", flush=True)
+    fails.check(line["correct"] is True, "bench_torch.py: correct is not true")
+    fails.check(line["device"]["name"] == torch.cuda.get_device_name(0),
+                f"bench_torch.py: device {line['device']['name']!r} is not "
+                f"{torch.cuda.get_device_name(0)!r}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2483,6 +2519,10 @@ def main() -> int:
         "split": split + (masks[("split", "exact")],),
         "velodyne128": velo_gen + (gen[("velodyne128", "exact")],)})
     launches = {k: launches[k] + launches_ref[k] for k in launches}
+
+    # ---- 11. the port's benchmark, as a process ----
+    stamp("11 bench")
+    phase11(fails)
 
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed",

@@ -88,6 +88,7 @@ def main() -> int:
     import chip_smoke
     from patchwork_tpu_torch import PatchworkConfig, filter_ground_batched
     from patchwork_tpu_torch.core.device import card_info, cuda_device
+    from patchwork_tpu_torch.core.timing import device_busy_ms
     from patchwork_tpu_torch.io.synthetic import (split_terrain_cloud,
                                                   velodyne_like_cloud)
     from patchwork_tpu_torch.kernels import _build, fit_cuda, seg_cuda
@@ -215,17 +216,7 @@ def main() -> int:
 
     def device_us(fn, reps, pattern):
         """Mean device time per call of the kernels matching ``pattern``."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return sum(t for t, _, key in kernel_rows(prof)
-                   if re.search(pattern, key)) / reps
+        return 1e3 * device_busy_ms(fn, reps, pattern).busy_ms
 
     def host_us(fn, reps=2000):
         """Host time per call: ``reps`` calls with no synchronise between
