@@ -24,10 +24,17 @@ Phases, one line each:
      seg_gather at C = 1, 3, 8 and point counts that are no multiple of 4,
      and fit_level at B = 1, 3, 8, each scan against its solo run, a
      max_iter exit beside a convergence exit, every one run twice with
-     equal bits; level_fit, the level path's fit loop in one launch, the
-     same way on velodyne level 0 (Sp 128) and a split-terrain remap level
-     (Sp 256), mask and every column of the sums bit for bit, beside the
-     loop of sweeps on the same input; the order statistic at Sp 128
+     equal bits; level_core, kernel #1's level in one co-operative launch
+     (R3-R5, stats, early-outs, deficient rounds, seeds, fit, split,
+     finish), on velodyne level 0 (Sp 128), a split-terrain remap level (Sp
+     256), velodyne 3 m up (every node deficient), split terrain with NaN
+     and +-inf coordinates (parked by binning, and on live points of level
+     0) and percentile seeds, exact and fast: state and stats bit for bit
+     against its plain version twice, at max_iter 2 too, each scan alone
+     against the batch, the whole level against level_reference twice; its
+     time and device time beside the same level as its phases one by one
+     (the phase kernels and the loop of sweeps), its registers and spills
+     (ptxas) and blocks per scan; the order statistic at Sp 128
      (percentile ranks) and Sp 256 (medians) with its kernels per call, and
      on a skewed input (one node holds two fifths of a scan); its per-round
      entry (the point-sharded engine's) on the split remap level's medians,
@@ -38,14 +45,16 @@ Phases, one line each:
      (split terrain B=8 x 153600) and the wide table's binding, each twice
      against its plain version with its time, device time, bound and
      index_add_'s; the device times (torch.profiler) of the
-     moments2 sweep, seg_gather, torch.gather, level_fit and the order
+     moments2 sweep, seg_gather, torch.gather, level_core and the order
      statistic;
   4. slice: filter_ground_batched on B=8 x 131072 velodyne-like scans and
      on B=8 x 131072 split-terrain scans (whose patches recurse), exact and
      fast mode, through the kernels: exact masks equal the plain path's bit
      for bit (fast masks are compared on the first two scans: the plain path
      takes seconds a batch), fast IoU >= 0.999 vs exact, a second run gives
-     the same masks,
+     the same masks, the level family's launches a batch are 1 on velodyne
+     and 1 + 3 (exact) or 2 (fast) a remap level on split terrain (at most
+     16 and 11),
      sector ids agree with CPU binning, RecursivePatchwork on one scan; then
      the generic level engine: segment_impl="pallas" at B=8 x 131072, and
      the default "fused" above the path gate on 128-beam velodyne and split
@@ -191,9 +200,22 @@ IOU_FAST_MIN = 0.999
 IOU_EVAL_TOL = 0.001
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s off the tensor cores
 PEAK_BYTES_S, PEAK_FLOPS = 3.35e12, 67e12
-# float32 operations per point of one sweep, counted from the expressions
+# float32 operations per point, counted from the expressions (arithmetic,
+# compares and each sum's adds; integer atomics and key work not counted):
+# one sweep of each kind, [exact, fast]
 APPLY_FLOPS = {False: 31, True: 43}
 M2_FLOPS = 19
+# the level's phases around its sweeps (csrc/level.cuh): the labels and
+# seeds with their sums, sweep 0 (pw_seed_point: 23 + the 6 rows' adds;
+# fast + 6 products and 6 more adds); R5 on a remap level
+# (pw_remap_point); node stats where the launch counts them (two
+# compares); the finish (three compares); R1's rows and adds and R1b's
+# (engine.level on a remap level).  The deficient rounds (compares, in
+# scans with a deficient node), the per-node phases and the medians'
+# integer key work are left out: a bound that counts less stays a bound.
+SEED_FLOPS = {False: 29, True: 41}
+REMAP_FLOPS, STATS_FLOPS, FINISH_FLOPS = 18, 2, 3
+R1_FLOPS = {False: 6 + 9, True: 10}
 
 
 T0 = time.perf_counter()
@@ -261,8 +283,9 @@ def kernel_bound(name, args, kw, out, sweeps):
     """(bound_ms, bound_by, bytes, flops) of one call: every input read
     once and every output written once over the card's memory rate, against
     the float32 operations the inputs ask for over its peak rate.  ``sweeps``
-    is the (apply, moments2) sweep count of a level call, or per scan the
-    apply sweeps of a fit_level call: the work this run's data needed."""
+    is per scan the sweeps of a level call (its level_core's, sweep 0
+    included) or the apply sweeps of a fit_level call: the work this run's
+    data needed."""
     if name in ("apply_sweep", "moments2_sweep"):
         pts, state, tab = args[:3]
         b, _, n = pts.shape
@@ -281,21 +304,31 @@ def kernel_bound(name, args, kw, out, sweeps):
         flops = sum(n * (k * APPLY_FLOPS[fast]
                          + (0 if fast else (k - 1) * M2_FLOPS))
                     for k in sweeps)
-    elif name == "level_fit":
-        pts, state, m1, fit_row, tau_row = args[:5]
+    elif name in ("level_core", "level"):
+        pts = args[0]
         b, _, n = pts.shape
-        fast = bool(args[7])
-        # x, y, z, the mask and the node id read, the mask written back
-        byts = b * n * 24 + _nbytes(m1, fit_row, tau_row, out)
-        flops = sum(n * k * (APPLY_FLOPS[fast] + (0 if fast else M2_FLOPS))
+        if name == "level_core":
+            # every input read once, the stats and the state written
+            fast = bool(args[10])
+            rest = dict(zip(("remap", "tz", "nstats"), args[11:]), **kw)
+            remap = rest.get("remap") is not None
+            counts = rest.get("nstats") is None
+            byts = _nbytes(args, out) + _nbytes(args[1])
+            extra = 0
+        else:
+            fast = bool(kw.get("fast", False))
+            remap = bool(kw.get("remap", False))
+            counts = bool(kw.get("adaptive", True))
+            byts = _nbytes(args[:2], out)
+            extra = R1_FLOPS[fast] if remap else 0
+        # per scan: sweep 0 (the seeds'), k - 1 apply sweeps, in exact mode
+        # a moments2 sweep before each, and the phases around them
+        flops = sum(n * (SEED_FLOPS[fast] + (k - 1) * APPLY_FLOPS[fast]
+                         + (0 if fast else (k - 1) * M2_FLOPS)
+                         + (REMAP_FLOPS if remap else 0)
+                         + (STATS_FLOPS if counts else 0) + FINISH_FLOPS
+                         + extra)
                     for k in sweeps)
-    elif name == "level":
-        pts, tables = args[:2]
-        b, _, n = pts.shape
-        fast = bool(kw.get("fast", False))
-        byts = _nbytes(pts, tables, out)
-        flops = b * n * (sweeps[0] * APPLY_FLOPS[fast] + sweeps[1] * M2_FLOPS
-                         + 60)
     elif name == "seg_sum":
         rows, seg = args[:2]
         byts, flops = _nbytes(rows, seg, out), rows.numel()
@@ -479,104 +512,162 @@ def _same_bits(a, b) -> bool:
                for x, y in zip(_tensors(a), _tensors(b)))
 
 
-def level_fit_checks(dev, fails, inputs) -> dict:
-    """Phase 3's checks of level_fit, the level path's fit loop in one
-    launch: ``inputs`` maps (scene, mode) to the arguments the main path
-    gave it.  Against its plain version (the loop of plain sweeps) in the
-    mask and in every column of the sums, bit for bit, at B = 1, 3, 8, a
-    max_iter exit beside a convergence exit, each scan alone against the
-    batch, every one run twice; timed beside the loop of sweeps on the same
-    input.  Returns the JSON keys of the family's entry (velodyne exact)."""
+def level_sweeps(core) -> list:
+    """Per scan the sweeps (sweep 0 included) of level_core's captured
+    call ``core`` = (args, kwargs)."""
     import torch
     from patchwork_tpu_torch.kernels import fit_cuda
 
-    def run(fn, a, mi, **kw):
-        pts, state, m1, fit_row, tau_row, trash, _, fast = a
-        st = state.clone()
-        return fn(pts, st, m1, fit_row, tau_row, trash, mi, fast, **kw), st
+    args, kw = core
+    a = _clone(args)
+    sweeps = torch.zeros(a[0].shape[0], dtype=torch.int32,
+                         device=a[0].device)
+    fit_cuda.level_core(*a, sweeps_out=sweeps, **kw)
+    return sweeps.tolist()
+
+
+def level_core_checks(dev, fails, inputs) -> dict:
+    """Phase 3's checks of level_core, kernel #1's level in one co-operative
+    launch: ``inputs`` maps (scene, mode) to (level_core's arguments,
+    engine.level's arguments) as the main path gave them, each (args,
+    kwargs).  The launch against its plain version (the phases one by one
+    around the loop of plain sweeps) in every bit of the state and the
+    stats, twice, at the full max_iter and at max_iter 2 (a max_iter exit,
+    checked), the first three scans and each scan alone against the
+    batch; the whole level (R1, R1b, the medians and the
+    launch) against level_reference, twice.  Timed beside the same level as
+    its phases one by one (level_sequence over the kernels: the phase
+    kernels and the loop of sweeps), by events and by device time; the
+    launch's registers, spills and blocks per scan.  Returns the JSON keys
+    of the family's entry (velodyne level 0, exact)."""
+    import torch
+    from patchwork_tpu_torch.kernels import _build, fit_cuda
+    from patchwork_tpu_torch.segment import engine
+
+    regs = {("fast" if "ILb1E" in k else "exact"): v
+            for k, v in _build.ptxas_info(r"pw_fit_level_kernelILb.ELb1E").items()}
+    print(f"[3 level_core] ptxas of the level layout of pw_fit_level_kernel: "
+          f"{regs} (a register cap "
+          f"of 48 under __launch_bounds__(256, 5))", flush=True)
+    fails.check(len(regs) == 2, "no ptxas report of the level kernel")
+
+    def run(fn, a, mi=None, **kw):
+        a = _clone(a)
+        if mi is not None:
+            a = a[:4] + (mi,) + a[5:]
+        return fn(*a, **kw), a[1]
 
     def cut(a, lo, hi):
-        return tuple(t[lo:hi].contiguous() for t in a[:5]) + tuple(a[5:])
+        """Scans lo..hi of level_core's arguments."""
+        return tuple(t[lo:hi].contiguous() if isinstance(t, torch.Tensor)
+                     else tuple(x[lo:hi].contiguous() for x in t)
+                     if isinstance(t, tuple) else t for t in a)
 
     entry = {}
-    for (scene, mode), a in sorted(inputs.items()):
-        n, sp, max_iter, fast = a[0].shape[2], a[3].shape[1], a[6], a[7]
-        blocks = {b: fit_cuda.fit_level_blocks(b, n, sp, fast, level=True)
-                  for b in (1, 3, 8)}
-        print(f"[3 level_fit] {scene} {mode} N={n} Sp={sp}: one co-operative "
-              f"launch, blocks per scan {blocks}", flush=True)
-        of_8 = {}
-        for b in (8, 3, 1):
-            ab = cut(a, 0, b)
-            for mi in (max_iter, 2):
-                sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
-                got = run(fit_cuda.level_fit, ab, mi, sweeps_out=sweeps)
-                again = run(fit_cuda.level_fit, ab, mi)
-                # the plain version's many sweeps take seconds: the smaller
-                # batches at the full max_iter are held to the batch of 8,
-                # which was held to it
-                if (b, mi) == (8, max_iter):
-                    held = []
-                    t_plain = _time_ms(lambda: held.append(
-                        run(fit_cuda.level_fit_plain, ab, mi)), (), {}, 1)
-                    want = held.pop()
-                elif mi == 2:
-                    want = run(fit_cuda.level_fit_plain, ab, mi)
-                else:
-                    want = tuple(t[:b] for t in of_8[mi])
-                if b == 8:
-                    of_8[mi] = got
-                torch.cuda.synchronize()
-                ok = _same_bits(got, want) and _same_bits(got, again)
-                solo = b == 8 and all(
-                    _same_bits(run(fit_cuda.level_fit, cut(ab, i, i + 1), mi),
-                               (got[0][i:i + 1], got[1][i:i + 1]))
-                    for i in range(b))
-                exits = ["max_iter" if k == mi + 1 else "converged"
-                         for k in sweeps.tolist()]
-                print(f"[3 level_fit] {scene} {mode} B={b} max_iter {mi}: "
-                      f"sweeps per scan {sweeps.tolist()} "
-                      f"({exits.count('max_iter')} max_iter exits), mask and "
-                      f"every column vs plain and run twice "
-                      f"{'ok' if ok else 'MISMATCH'}"
-                      + (f", each scan alone {'ok' if solo else 'MISMATCH'}"
-                         if b == 8 else ""), flush=True)
-                fails.check(ok, f"level_fit {scene} {mode} B={b} max_iter "
-                                f"{mi}: differs from its plain version or "
-                                "between two runs")
-                if b == 8:
-                    fails.check(solo, f"level_fit {scene} {mode} max_iter "
-                                      f"{mi}: a scan alone differs from the "
-                                      "batch")
-                if (b, mi) == (8, max_iter):
-                    per_scan, out8 = sweeps.tolist(), got[0]
-        if mode == "exact":
-            fails.check(not torch.equal(
-                run(fit_cuda.level_fit, a, 2)[1][:, 0],
-                run(fit_cuda.level_fit, a, max_iter)[1][:, 0]),
-                f"level_fit {scene}: the max_iter exit equals the "
-                "convergence exit")
-        # one launch beside the loop of sweeps (kernels, host-driven) on the
-        # same input; the plain version was timed on the run held against
-        t_one = _time_ms(lambda *x: run(fit_cuda.level_fit, x, max_iter), a,
-                         {}, 5)
-        t_loop = _time_ms(lambda *x: run(
-            lambda *y: fit_cuda.fit_sweep_loop(fit_cuda, *y), x, max_iter),
-            a, {}, 3)
-        d_ms = _device_ms(lambda: run(fit_cuda.level_fit, a, max_iter), 5,
-                          "pw_fit_level_kernel") or float("nan")
-        bnd = kernel_bound("level_fit", a, {}, out8, per_scan)
-        print(f"[3 level_fit] {scene} {mode} B=8 N={n} Sp={sp}: one launch "
-              f"{t_one:.3f} ms (device {d_ms:.3f} ms), loop of sweeps "
-              f"{t_loop:.3f} ms, plain {t_plain:.1f} ms; bound {bnd[0]:.4f} ms"
-              f" by {bnd[1]} ({bnd[2]} B, {bnd[3]} flop); sweeps per scan "
-              f"{per_scan}", flush=True)
-        if (scene, mode) == ("velodyne", "exact"):
-            entry = {"fit_ms": t_one, "fit_device_ms": d_ms,
-                     "fit_loop_of_sweeps_ms": t_loop, "fit_plain_ms": t_plain,
-                     "fit_bound_ms": bnd[0], "fit_bound_by": bnd[1],
-                     "fit_sweeps_per_scan": per_scan,
-                     "fit_blocks_per_scan": blocks[8]}
+    for (scene, mode), ((args, kw), (largs, lkw)) in sorted(inputs.items()):
+        pts = args[0]
+        b, n, sp, max_iter = pts.shape[0], pts.shape[2], args[2].shape[2], \
+            args[4]
+        fast = bool(args[10])
+        blocks = fit_cuda.fit_level_blocks(b, n, sp, fast, level=True)
+        b3 = min(b, 3)
+        blocks3 = fit_cuda.fit_level_blocks(b3, n, sp, fast, level=True)
+        sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+        got = run(fit_cuda.level_core, args, sweeps_out=sweeps)
+        per_scan = sweeps.tolist()
+        again = run(fit_cuda.level_core, args)
+        held = []
+        t_plain = _time_ms(lambda: held.append(
+            run(fit_cuda.level_core_plain, args)), (), {}, 1)
+        want = held.pop()
+        ok = _same_bits(got, want) and _same_bits(got, again)
+        sweeps2 = torch.zeros(b, dtype=torch.int32, device=dev)
+        at2 = run(fit_cuda.level_core, args, 2, sweeps_out=sweeps2)
+        ok2 = _same_bits(at2, run(fit_cuda.level_core_plain, args, 2))
+        # max_iter 2 really leaves by max_iter: a scan that runs longer at
+        # the full max_iter stops after sweep 0, two sweeps and the can = 0
+        # one, and the mask differs
+        cut_short = sum(k2 == 4 < k for k2, k in zip(sweeps2.tolist(),
+                                                     per_scan))
+        exits = cut_short > 0 and not torch.equal(at2[1][:, 0], got[1][:, 0])
+        # the first three scans alone, more blocks a scan, at both max_iters
+        ok3 = all(_same_bits(run(fit_cuda.level_core, cut(args, 0, b3), mi),
+                             tuple(t[:b3] for t in whole))
+                  for mi, whole in ((max_iter, got), (2, at2)))
+        solo = all(_same_bits(run(fit_cuda.level_core, cut(args, i, i + 1)),
+                              (got[0][i:i + 1], got[1][i:i + 1]))
+                   for i in range(b))
+        lvl = engine.level(*_clone(largs), **lkw)
+        lvl2 = engine.level(*_clone(largs), **lkw)
+        ref = engine.level_reference(*_clone(largs), **lkw)
+        if not lkw.get("adaptive", True):
+            # the order statistic leaves zth of an empty node undefined
+            # (its rank is out of range): stats row 6 where cnt is 0
+            empty = ref[1][:, 3] == 0
+            for st in (lvl[1], lvl2[1], ref[1]):
+                st[:, 6][empty] = 0.0
+        ok_ref = _same_bits(lvl, ref) and _same_bits(lvl, lvl2)
+        picks = int((want[1][:, 2] > 0.5).sum().item())
+        # the non-finite coordinates reach the result: the stats differ
+        # from those of the same points made finite
+        finite = (torch.nan_to_num(args[0], 0.0, 1.0, -1.0),) + args[1:]
+        nonfinite = not _same_bits(got[0], run(fit_cuda.level_core,
+                                               finite)[0])
+        print(f"[3 level_core] {scene} {mode} B={b} N={n} Sp={sp}: one "
+              f"launch, {blocks} blocks a scan, sweeps per scan {per_scan} "
+              f"(sweep 0 included), deficient picks {picks}, stats moved by"
+              f" non-finite points {nonfinite}; vs plain and run twice "
+              f"{'ok' if ok else 'MISMATCH'}, at max_iter 2 "
+              f"{'ok' if ok2 else 'MISMATCH'} ({cut_short} scans cut short)"
+              f", B={b3} ({blocks3} blocks a scan) "
+              f"{'ok' if ok3 else 'MISMATCH'}, each scan alone "
+              f"{'ok' if solo else 'MISMATCH'}; the level vs "
+              f"level_reference and twice {'ok' if ok_ref else 'MISMATCH'}",
+              flush=True)
+        fails.check(ok and ok2, f"level_core {scene} {mode}: differs from "
+                                "its plain version or between two runs")
+        fails.check(exits, f"level_core {scene} {mode}: the max_iter exit "
+                           "equals the convergence exit")
+        fails.check(ok3, f"level_core {scene} {mode}: the first {b3} scans "
+                         "alone differ from the batch")
+        fails.check(solo, f"level_core {scene} {mode}: a scan alone differs "
+                          "from the batch")
+        fails.check(ok_ref, f"level {scene} {mode}: differs from "
+                            "level_reference or between two runs")
+        if scene.startswith("deficient"):
+            fails.check(picks > 0, f"level_core {scene}: no deficient pick")
+        if scene.startswith("NaN"):
+            fails.check(nonfinite, f"level_core {scene}: the non-finite "
+                                   "points changed no stat")
+        # the launch beside the same level as its phases one by one, on the
+        # same input
+        t_one = _time_ms(fit_cuda.level_core, args, kw, 5)
+        t_seq = _time_ms(lambda *a: fit_cuda.level_sequence(fit_cuda, *a),
+                         args, kw, 3)
+        d_one = _device_ms(lambda: run(fit_cuda.level_core, args), 5,
+                           r"pw_fit_level_kernel<\w+, true>") or float("nan")
+        d_seq = _device_ms(lambda: run(
+            lambda *a: fit_cuda.level_sequence(fit_cuda, *a), args), 3,
+            "pw_") or float("nan")
+        d_phases = _device_ms(lambda: run(
+            lambda *a: fit_cuda.level_sequence(fit_cuda, *a), args), 3,
+            "pw_stats|pw_early|pw_def|pw_seed|pw_split|pw_finish|pw_remap"
+        ) or float("nan")
+        bnd = kernel_bound("level_core", args, kw, got[0], per_scan)
+        print(f"[3 level_core] {scene} {mode}: one launch {t_one:.3f} ms "
+              f"(device {d_one:.4f} ms); its phases one by one {t_seq:.3f} ms"
+              f" (device {d_seq:.4f} ms, of which the phases around the fit "
+              f"{d_phases:.4f}); plain {t_plain:.1f} ms; bound {bnd[0]:.4f} "
+              f"ms by {bnd[1]} ({bnd[2]} B, {bnd[3]} flop)", flush=True)
+        if (scene, mode) == ("velodyne level 0", "exact"):
+            entry = {"launch_ms": t_one, "launch_device_ms": d_one,
+                     "phases_one_by_one_ms": t_seq,
+                     "phases_one_by_one_device_ms": d_seq,
+                     "phases_around_fit_device_ms": d_phases,
+                     "launch_plain_ms": t_plain, "launch_bound_ms": bnd[0],
+                     "launch_bound_by": bnd[1],
+                     "sweeps_per_scan": per_scan,
+                     "blocks_per_scan": blocks, "ptxas": regs}
     return entry
 
 
@@ -1986,13 +2077,17 @@ def main() -> int:
                "remap_r1", "remap_r1b", "remap_nodes", "remap_points",
                "node_stats", "early_outs", "deficient_round", "seed_init",
                "plane_table", "split_decision", "finish_nodes"]
+    # the level family's phases one by one: above the card's gate only
+    phases = ["remap_nodes", "remap_points", "node_stats", "early_outs",
+              "deficient_round", "seed_init", "split_decision",
+              "finish_nodes"]
     family_of = {m: "level" for m in members}
     for f in ("seg_order_stat", "seg_sum", "apply_sweep", "moments2_sweep",
               "fit_level", "seg_gather", "seg_minmax"):
         family_of[f] = f
     # (label, mode) -> (wrapper name, module, args, kwargs)
     captured = {}
-    level_fit_inputs = {}   # (scene, mode) -> level_fit's arguments
+    core_inputs = {}    # (scene, mode) -> (level_core's args, level's args)
     # the loop of sweeps as the engine runs it today: the table above the
     # card's gate (Sp 4224), the gate as it is.  The second iteration of the
     # first deeper level's fit: its moments2 sweep, plane table and apply
@@ -2008,30 +2103,58 @@ def main() -> int:
         cap_w.restore()
     for name in sweep_members:
         captured[(name, "exact")] = (name, fit_cuda) + cap_w.saved[name]
-    for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
-        # a split-terrain batch as the main path runs it: every wrapper of
-        # the level family at its first call, a remap level (Sp 256) and
-        # that level's fit
+    def core_capture(data, cfg, pick):
+        """The pick-th level of one batch: level_core's and engine.level's
+        arguments, and the wrappers of the level family it called first."""
         cap_k = Capture(fit_cuda, [m for m in members
-                                   if m not in sweep_members] + ["level_fit"],
-                        {"level_fit": 2})
-        cap_l = Capture(engine, ["level"], {"level": 2})
+                                   if m not in sweep_members] + ["level_core"],
+                        {"level_core": pick})
+        cap_l = Capture(engine, ["level"], {"level": pick})
         try:
-            filter_ground_batched(*split, cfg)
+            filter_ground_batched(*data, cfg)
         finally:
             cap_l.restore()
             cap_k.restore()
-        level_fit_inputs[("split remap level", mode)] = \
-            cap_k.saved.pop("level_fit")[0]
-        for name, v in cap_k.saved.items():
+        return (cap_k.saved.pop("level_core"), cap_l.saved["level"],
+                cap_k.saved)
+
+    def with_special_values(data):
+        """The batch with NaN, +inf and -inf coordinates in every scan
+        (binning parks them on the trash id)."""
+        xyz = data[0].clone()
+        for j, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+            xyz[:, 11 + 7 * j::997, j] = v
+        return xyz, data[1]
+
+    def live_special_values(core, lvl):
+        """NaN, +inf and -inf coordinates on live points of level 0's
+        packed points too, in both captures (they share the points)."""
+        pts = core[0][0]
+        live = (pts[:, 3] < core[0][3]).nonzero()
+        for j, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+            pick = live[j::101]
+            for p in (pts, lvl[0][0]):
+                p[pick[:, 0], j, pick[:, 1]] = v
+
+    deficient = (velo[0] + torch.tensor([0.0, 0.0, 3.0], device=dev),
+                 velo[1])
+    for mode, cfg in (("exact", cfg_exact), ("fast", cfg_fast)):
+        # a split-terrain batch as the main path runs it: R1, R1b and the
+        # order statistic at their first call, a remap level (Sp 256) in one
+        # launch
+        core, lvl, first = core_capture(split, cfg, 2)
+        core_inputs[("split remap level", mode)] = (core, lvl)
+        for name, v in first.items():
             captured[(name, mode)] = (name, fit_cuda) + v
-        captured[("level", mode)] = ("level", engine) + cap_l.saved["level"]
-        # beside them, labelled: the sweeps at B=8 x 131072 (Sp 256), which
-        # only a shut gate gives them now (the same level fitted as a loop
-        # of sweeps; the shapes earlier readings were taken at)
-        cap_g = Capture(fit_cuda, sweep_members,
+        captured[("level", mode)] = ("level", engine) + lvl
+        # beside them, labelled: the level family's phases and the sweeps at
+        # B=8 x 131072 (Sp 256), which only a shut gate gives them now (the
+        # same level as its phases around a loop of sweeps; the shapes
+        # earlier readings were taken at)
+        cap_g = Capture(fit_cuda, sweep_members + phases,
                         {"apply_sweep": 5, "moments2_sweep": 5,
-                         "plane_table": 5})
+                         "plane_table": 5, **{m: 2 for m in phases},
+                         "remap_nodes": 1, "remap_points": 1})
         try:
             with card_gate(lambda sp: False):
                 filter_ground_batched(*split, cfg)
@@ -2039,20 +2162,27 @@ def main() -> int:
             cap_g.restore()
         for name, v in cap_g.saved.items():
             captured[(name + "/gate shut", mode)] = (name, fit_cuda) + v
-        cap_f = Capture(fit_cuda, ["level_fit"], {})
-        try:
-            filter_ground_batched(*velo, cfg)       # level 0, Sp 128
-        finally:
-            cap_f.restore()
-        level_fit_inputs[("velodyne", mode)] = cap_f.saved["level_fit"][0]
+        # velodyne level 0 (Sp 128); every seed threshold below the points
+        # (the deficient rounds); NaN and +-inf coordinates
+        for scene, data in (("velodyne level 0", velo),
+                            ("deficient, z + 3 m", deficient),
+                            ("NaN and +-inf", with_special_values(split))):
+            core, lvl, _ = core_capture(data, cfg, 1)
+            if scene.startswith("NaN"):
+                live_special_values(core, lvl)
+            core_inputs[(scene, mode)] = (core, lvl)
     # the order statistic as the main path calls it: the split median at Sp
     # 256 (above) and the percentile seeds of level 0 at Sp 128
-    cap_o = Capture(fit_cuda, ["seg_order_stat"], {})
+    cap_o = Capture(fit_cuda, ["seg_order_stat", "level_core"], {})
+    cap_p = Capture(engine, ["level"], {})
     try:
         filter_ground_batched(*velo, PatchworkConfig(
             adaptive_seed_height=False))
     finally:
+        cap_p.restore()
         cap_o.restore()
+    core_inputs[("percentile seeds", "exact")] = (cap_o.saved["level_core"],
+                                                  cap_p.saved["level"])
     order_stat_inputs = {
         "median, split remap level": captured[("seg_order_stat",
                                                "exact")][2],
@@ -2158,13 +2288,10 @@ def main() -> int:
             tk, tp = [out_k[ok]], [out_p[ok]]
         e = max(_abs_err(a, b) for a, b in zip(tk, tp))
         if name == "level":
-            state_k, stats_k = out_k
-            state_p, stats_p = out_p
-            exact = (torch.equal(state_k, state_p)
-                     and torch.equal(stats_k[:, [0, 1, 3, 4]],
-                                     stats_p[:, [0, 1, 3, 4]]))
-            fine = exact and torch.allclose(stats_k, stats_p, rtol=SUM_RTOL,
-                                            atol=SUM_ATOL, equal_nan=True)
+            # every bit of the state and the stats (level_core_checks holds
+            # the one launch on more inputs)
+            fine = _same_bits(out_k, out_p)
+            sweeps = level_sweeps(core_inputs[("split remap level", mode)][0])
         elif name in exact_only:
             fine = e == 0.0
         else:
@@ -2209,8 +2336,8 @@ def main() -> int:
         dev, fails, sweep_inputs,
         {mode: captured[("fit_level", mode)][2:] for mode in ("exact", "fast")},
         captured[("seg_gather", "exact")][2])
-    stamp("3 level_fit")
-    extra["level"] = level_fit_checks(dev, fails, level_fit_inputs)
+    stamp("3 level_core")
+    extra["level"] = level_core_checks(dev, fails, core_inputs)
     extra["seg_order_stat"] = order_stat_checks(dev, fails, order_stat_inputs)
     rounds_entry = order_stat_rounds_checks(
         dev, fails, order_stat_inputs["median, split remap level"])
@@ -2270,9 +2397,10 @@ def main() -> int:
             d = {k: v - before[k] for k, v in fit_cuda.LAUNCHES.items()}
             print(f"[4 slice] {scene} {mode} B={B} N={N}: launches of one "
                   f"batch", {k: v for k, v in d.items() if v}, flush=True)
-            # every fit of the level path is one launch of the level family:
-            # no sweep, no plan of its own; velodyne runs one level, eight
-            # launches around its fit and one for it
+            # every level of the level path is one launch of the level
+            # family: no sweep, no plan of its own; a remap level adds R1
+            # (and in exact mode R1b) and one median (#2); velodyne runs one
+            # level, split terrain five remap levels
             fails.check(d["apply_sweep"] == 0 and d["moments2_sweep"] == 0
                         and d["sweep_plan"] == 0 and d["level"] > 0,
                         f"{scene} {mode}: the level path launched sweeps {d}")
@@ -2280,9 +2408,19 @@ def main() -> int:
             fails.check(d["seg_plan"] == 0 and d["seg_sum"] == 1,
                         f"{scene} {mode}: the level path built a segment plan"
                         f" or summed more than once {d}")
+            per_remap = 2 if mode == "fast" else 3
+            fails.check(d["level"] == 1 + per_remap * d["seg_order_stat"],
+                        f"{scene} {mode}: {d['level']} launches of the level "
+                        f"family for {d['seg_order_stat']} remap levels")
             if scene == "velodyne":
-                fails.check(d["level"] == 9, f"velodyne {mode}: {d['level']} "
-                            "launches of the level family, not 9")
+                fails.check(d["level"] == 1, f"velodyne {mode}: {d['level']} "
+                            "launches of the level family, not 1")
+            else:
+                most = 11 if mode == "fast" else 16
+                fails.check(0 < d["seg_order_stat"] and d["level"] <= most,
+                            f"split {mode}: {d['level']} launches of the level"
+                            f" family (at most {most}), "
+                            f"{d['seg_order_stat']} remap levels")
             g2 = filter_ground_batched(xyz, valid, cfg).ground
             masks[(scene, mode)] = g1
             fails.check(torch.equal(g1, g2),
@@ -2536,7 +2674,7 @@ def main() -> int:
         ("apply_sweep", "sweeps.cu", "patchwork_tpu/kernels/fit_pallas.py:180"),
         ("moments2_sweep", "sweeps.cu",
          "patchwork_tpu/kernels/fit_pallas.py:220"),
-        ("level", "level.cu", "patchwork_tpu/kernels/fit_pallas.py:1465"),
+        ("level", "fitloop.cu", "patchwork_tpu/kernels/fit_pallas.py:1465"),
         ("seg_sum", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:74"),
         ("fit_level", "fitloop.cu", "patchwork_tpu/kernels/fit_pallas.py:525"),
         ("seg_gather", "seg.cu", "patchwork_tpu/kernels/seg_pallas.py:112"),

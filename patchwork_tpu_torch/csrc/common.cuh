@@ -7,10 +7,10 @@
 // N is a multiple of PW_TILE for every sweep.
 //
 // Segment sums are never float atomics: inside a tile of PW_TILE points the
-// thread of node s adds that tile's points of s in point order, and the
-// per-tile partials are added in tile order (pw_reduce_tiles).  The plain
-// PyTorch versions (kernels/fit_cuda.py) add in exactly this order, and the
-// library is built with -fmad=false, so both compute the same bits.
+// points of node s are added in point order, and the per-tile partials in
+// tile order (tile_sums.cuh).  The plain PyTorch versions
+// (kernels/fit_cuda.py) add in exactly this order, and the library is built
+// with -fmad=false, so both compute the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +32,27 @@ __device__ __forceinline__ float pw_key_f32(int k) {
 
 #define PW_KEY_POS_INF 0x7F800000            // pw_f32_key(+inf)
 #define PW_KEY_NEG_INF ((int)0x807FFFFF)     // pw_f32_key(-inf)
+
+// A key's distance from a min's identity (+inf's key) and from a max's
+// (-inf's key): zero is the identity, and a larger distance is a smaller
+// min or a larger max, so a zeroed table takes atomicMax of distances.
+// Keys beyond the identity (+NaN for a min, -NaN for a max) count as the
+// identity, as an atomicMin (atomicMax) from the identity ignores them.
+__device__ __forceinline__ unsigned pw_min_dist(int k) {
+  return (unsigned)PW_KEY_POS_INF - (unsigned)min(k, PW_KEY_POS_INF);
+}
+
+__device__ __forceinline__ unsigned pw_max_dist(int k) {
+  return (unsigned)max(k, PW_KEY_NEG_INF) - (unsigned)PW_KEY_NEG_INF;
+}
+
+__device__ __forceinline__ float pw_min_of_dist(unsigned d) {
+  return pw_key_f32((int)((unsigned)PW_KEY_POS_INF - d));
+}
+
+__device__ __forceinline__ float pw_max_of_dist(unsigned d) {
+  return pw_key_f32((int)(d + (unsigned)PW_KEY_NEG_INF));
+}
 
 // NaN-propagating clamps, the semantics of torch.clamp / jnp.clip.
 __device__ __forceinline__ float pw_clamp_lo(float x, float lo) {
@@ -121,30 +142,3 @@ __device__ __forceinline__ void pw_centered_m2(const float* M1, int sp, int s,
   m[4] = M1[10 * sp + s] - sy * sz / n;
   m[5] = M1[11 * sp + s] - sz * sz / n;
 }
-
-// Per-tile segment sums.  vals[r][t] and segs[t] hold the tile's staged
-// points; the thread of node s adds the points of s in point order and
-// writes its R sums to partial[r * sp + s].
-template <int R>
-__device__ __forceinline__ void pw_tile_accumulate(float (*vals)[PW_TILE],
-                                                   const int* segs, int sp,
-                                                   float* partial) {
-  for (int s = threadIdx.x; s < sp; s += blockDim.x) {
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int t = 0; t < PW_TILE; ++t) {
-      if (segs[t] == s) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] += vals[r][t];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) partial[r * sp + s] = acc[r];
-  }
-}
-
-// partial (B, nt, R, sp) -> out (B, R, sp), tiles added in index order.
-// Defined in sweeps.cu; errors surface through cudaGetLastError().
-void pw_reduce_tiles(const float* partial, float* out, int B, int nt, int R,
-                     int sp, cudaStream_t stream);

@@ -1,55 +1,71 @@
-// One level's whole plane-fit loop in one launch, across the whole card.
+// One level's whole plane-fit loop in one launch, across the whole card;
+// and one engine level, its phases around the fit included, in one launch.
 //
-// Replaces patchwork_tpu/kernels/fit_pallas.py fit_level_megakernel ->
-// _mega_kernel (399-514, wrapper 523-560): a moments sweep of the seeded
-// mask (can = 0), then, while the mask changed and it < max_iter, a plane
-// table (centroid, _plane_rows normal, can = gcnt >= 3) and an apply sweep
-// (exact mode adds a centered-moment sweep per table; fast mode accumulates
-// 12 rows and centers them with _centered_m2); the final can = 0 sweep runs
-// only on a max_iter exit.  The generic level engine takes it through
-// _fused_fit_resid (segment/engine.py) where the fit gate admits the level.
+// pw_fit_level replaces patchwork_tpu/kernels/fit_pallas.py
+// fit_level_megakernel -> _mega_kernel (399-514, wrapper 523-560): a
+// moments sweep of the seeded mask (can = 0), then, while the mask changed
+// and it < max_iter, a plane table (centroid, _plane_rows normal, can = gcnt
+// >= 3) and an apply sweep (exact mode adds a centered-moment sweep per
+// table; fast mode accumulates 12 rows and centers them with _centered_m2);
+// the final can = 0 sweep runs only on a max_iter exit.  The generic level
+// engine takes it through _fused_fit_resid (segment/engine.py) where the
+// fit gate admits the level.  Points use the fit layout p (B, 8, N) rows
+// [x, y, z, tau, amask, seg, 0, 0] and a mask g (B, 1, N); stats (B, 8, Sp)
+// rows [cnt, sx, sy, sz, distsum (old mask), changed, 0, 0].
 //
-// Points use the fit layout p (B, 8, N) rows [x, y, z, tau, amask, seg, 0,
-// 0] and a mask g (B, 1, N); stats (B, 8, Sp) rows [cnt, sx, sy, sz,
-// distsum (old mask), changed, 0, 0].
-//
-// The same device code, with LEVEL set, is the fit loop of the level path
-// (fit_pallas.py level_megakernel -> _level_kernel, the while-loop at
-// 1357-1425; pw_level_fit below).  It reads the level layout: pts (B, 8, N)
-// rows [x, y, z, ...], the node id in state row 3 and the mask in state row
-// 0, which it updates in place.  There a point may change where its node is
-// live and fitting (act * can, act = seg < trash, can = fit[s] * (gcnt >=
-// 3)), tau is per node, every sum carries the factor act (the trash column
-// is that of apply_sweep_plain, not the parked points' sums), and the first
-// sums are seed_init's, handed in as m1 (B, R, Sp): sweep 0 is not run.  It
-// returns all R rows of the final sums, (B, R, Sp), as the apply sweep does.
+// pw_level_core replaces fit_pallas.py level_megakernel -> _level_kernel
+// (789-1462, wrapper 1465-1558), which the TPU runs as one launch a level:
+// one co-operative launch runs, in order, R3-R5 of a remap level (the
+// child-slot prefix in block 0 of the scan, then each block remaps its own
+// tiles), the sweep plan of the new node ids and node stats (integer
+// atomics into a shared table per block, then into the scan's table), the
+// early-outs (by each node's owner), min_seed deficient rounds (only in a
+// scan with a deficient node, a decision every block of the scan reads
+// after the same barrier), the labels and seeds with their sums as sweep 0,
+// the fit loop, the split decision (by the owners) and the finish (each
+// block over its tiles).  The per-phase device code is level.cuh's, shared
+// with the phase kernels of level.cu.  The level layout: pts (B, 8, N) rows
+// [x, y, z, seg, ground, done, index, 0] (seg the parent id on a remap
+// level), the node id in state row 3 and the mask in state row 0, updated
+// in place.  There a point may change where its node is live and fitting
+// (act * can, act = seg < trash, can = fit[s] * (gcnt >= 3)), tau is per
+// node and every sum carries the factor act (the trash column is that of
+// apply_sweep_plain).  Sweep 0 stages the seed rows themselves, [gm, x gm,
+// y gm, z gm, 0, 0] (and six products in fast mode): a zero-table apply
+// sweep would give NaN where a coordinate is not finite.  Percentile seeds
+// (fit_cuda.level_core's nstats): node stats and, on a remap level, R3-R5
+// ran as launches of their own ahead of it, and the launch starts at the
+// early-outs.
 //
 // The TPU keeps the whole cloud in VMEM and sums with bf16x3 one-hot
 // matmuls on one core.  Here the loop is bound by latency, not by bytes: a
 // sweep moves 32 bytes a point, but up to 101 sweeps follow one another and
-// each needs every node's sums of the one before.  So every scan gets G
+// each needs every node's sums of the one before; the phases around it are
+// one pass over the points each and a few per-node steps, which as launches
+// of their own cost a launch and a host call each.  So every scan gets G
 // blocks of PW_TILE threads that are resident together (a co-operative
 // launch, G = the card's co-resident blocks / B, at most one per tile) and
 // loop on the device, with one barrier per scan in device memory between
-// the phases of a sweep: no host read, and each scan leaves the loop on its
-// own.  A co-operative launch with per-scan barriers was taken over a
-// thread-block cluster per scan because a cluster holds at most 16 blocks,
-// which leaves 116 of 132 SMs idle at B = 1, while the barrier serves any G.
+// the phases: no host read, and each scan leaves the loop on its own.  A
+// co-operative launch with per-scan barriers was taken over a thread-block
+// cluster per scan because a cluster holds at most 16 blocks, which leaves
+// 116 of 132 SMs idle at B = 1, while the barrier serves any G.
 //
 // A block owns a contiguous range of tiles for the whole launch, so a
-// point's mask is read and written by one thread only.  The sweep plan
+// point's state is read and written by one thread only.  The sweep plan
 // (tile_sums.cuh) is built in the kernel, the node ids being fixed.  Per
 // sweep each block writes its tiles' compact partials (they stay in the
 // L2, a node's next to each other); after the barrier node s, owned by
 // block s % G, gets its chain in tile order, its centroid and normal (one
-// acosf per node and table, by the
-// owner only) and its table row; after the next barrier every block reads
-// the table into shared memory and sweeps again.  Sums keep the sweeps'
-// order, so the kernel equals fit_cuda.fit_level_plain bit for bit, run
-// after run, and a scan's result does not depend on the batch it is in.
+// acosf per node and table, by the owner only) and its table row; after the
+// next barrier every block reads the table into shared memory and sweeps
+// again.  Sums keep the sweeps' order, so the kernels equal their plain
+// versions (fit_cuda.fit_level_plain, fit_cuda.level_core_plain) bit for
+// bit, run after run, and a scan's result does not depend on the batch it
+// is in.
 //
-// What one block writes and another reads (partials, table, flag, plan) is
-// read with __ldcg after a __threadfence and the barrier.
+// What one block writes and another reads (partials, tables, flags, plan)
+// is read with __ldcg after a __threadfence and the barrier.
 //
 // A block walks its tiles in sequence with plain coalesced loads.  A ring of
 // tiles in shared memory filled by asynchronous copies (the next tile in
@@ -59,24 +75,43 @@
 // so it was not kept.  The barriers, the chains and the in-order runs bound
 // an iteration, not the loads.
 #include "common.cuh"
+#include "level.cuh"
 #include "tile_sums.cuh"
 
+// What the level layout takes beyond the fit's arguments.
+struct PwLevelArgs {
+  const float* tz;       // (B, 2, sp) tau and zth handed in, or null
+  const float* nstats;   // (B, 8, sp) node stats handed in, or null
+  float* pnode;          // (B, 4, sp) scratch: R3's parent rows
+  float* flags;          // (B, 5, sp) scratch: the early-out flags
+  float* ns;             // (B, 8, sp) scratch: the node stats as floats
+  unsigned* work;        // (B, 8, sp) zeroed: node stats as counts, keys
+  int* any_def;          // (B,) zeroed
+  unsigned* def;         // (min_seed, B, 2, sp) zeroed: the rounds' minima
+  int B, is_level0, min_seed, flat_minpts;
+  float flat_area, flat_dz;
+};
+
+// The fields the fit layout reads keep their places (ptxas allocates the
+// fit layout's registers by them: moved, the same code ran 3 % slower).
 struct PwFitArgs {
-  const float* p;
+  const float* p;   // fit layout: (B, 8, N) fit rows; level layout: pts
   const float* g0;  // fit layout: the seeded mask; level layout: unused
   float* g;         // fit layout: mask (B, 1, N); level layout: state (B, 4, N)
-  float* stats;
-  const float* m1;  // level layout: seed_init's sums (B, R, sp)
-  const float* fit; // level layout: (B, sp) 0/1, the nodes that fit
-  const float* tau; // level layout: (B, sp) tau per node
+  float* stats;     // out: fit layout the final sums (B, 8, sp); level
+                    // layout the level's stats (B, 8, sp)
+  const float* tables;  // level layout: (B, 8, sp)
+  const float* median;  // level layout, remap level: (B, sp), else null
+  const float* axis;    // level layout, remap level: (B, sp)
   PwPlan plan;
   float* partial;   // (B, cap, R) compact tile partials
   float* tab;       // (B, 7, sp) [cx, cy, cz, nx, ny, nz, gcnt >= 3]
   int* flag;        // (B,) number of the last sweep that changed the mask
   int* bar;         // (B,) arrivals at the scan's barrier, zeroed
-  int* sweeps;      // (B,) out: apply sweeps the scan ran
+  int* sweeps;      // (B,) out: the sweeps the scan ran, sweep 0 included
   int N, sp, cap, max_iter, G;
   int trash;        // level layout: ids below it are live
+  PwLevelArgs lv;   // level layout
 };
 
 // Barrier over the G blocks of one scan: arrivals only grow, the k-th
@@ -211,6 +246,12 @@ __device__ void pw_fit_read_table(const PwFitBlock& k, int r0, int r1) {
     k.tab[j] = __ldcg(k.tabg + j);
 }
 
+
+// The level layout's phases before the fit (R3-R5, the plan, node stats,
+// early-outs, deficient rounds) and after it (split decision, finish) are
+// the level kernel's own; the fit loop, and the setup and plan around it,
+// are shared with the fit layout, so the fit layout's code is that of the
+// fit loop alone.
 template <bool FAST, bool LEVEL>
 __global__ void __launch_bounds__(PW_TILE, 5)
     pw_fit_level_kernel(PwFitArgs a) {
@@ -246,46 +287,121 @@ __global__ void __launch_bounds__(PW_TILE, 5)
   int* flag = a.flag + b;
   int epoch = 0;
 
-  // the seeded mask (the level layout's is in place already) and the plan
-  // of the block's tiles
-  for (int tile = k.t0; tile < k.t1; ++tile) {
-    if constexpr (!LEVEL) {
-      size_t i = (size_t)tile * PW_TILE + t;
-      k.Gm[i] = a.g0[(size_t)b * N + i];
+  // level layout: the scan's tables, its early-out flags, its stats out;
+  // tau and zth (2, sp) handed in, R4's (written into O rows 5-6), or the
+  // tables' rows 0-1
+  const PwLevelArgs& L = a.lv;
+  int trash = a.trash;
+  float* S = k.Gm;
+  const float* T = LEVEL ? a.tables + (size_t)b * 8 * sp : nullptr;
+  float* O = a.stats + (size_t)b * 8 * sp;
+  float* F = LEVEL ? L.flags + (size_t)b * 5 * sp : nullptr;
+  const float* TZ = L.tz ? L.tz + (size_t)b * 2 * sp
+                         : (a.median ? O + 5 * sp : T);
+  bool count = LEVEL && L.nstats == nullptr;
+  const float* NS = LEVEL ? (count ? L.ns : L.nstats) + (size_t)b * 8 * sp
+                          : nullptr;
+  unsigned* st = (unsigned*)k.tab;           // node stats, before the fit
+
+  if constexpr (LEVEL) {
+    // R3 + R4 in block 0, then R5 over the block's tiles
+    if (a.median) {
+      float* Q = L.pnode + (size_t)b * 4 * sp;
+      if (g == 0)
+        pw_remap_nodes_block(T, a.median + (size_t)b * sp,
+                             a.axis + (size_t)b * sp, Q, O + 5 * sp, sp,
+                             trash, iw + 3 * PW_TILE);
+      pw_scan_barrier(bar, G, &epoch);
+      for (int tile = k.t0; tile < k.t1; ++tile)
+        pw_remap_point(k.P, S, Q, N, (size_t)tile * PW_TILE + t, sp, trash);
     }
+    if (count)
+      for (int j = t; j < 8 * sp; j += PW_TILE) st[j] = 0u;
+  }
+
+  // the seeded mask (the level layout's is seeded below) and the plan of
+  // the block's tiles; the level layout's node stats of its tiles, in a
+  // shared table (the table's rows, free until the fit) merged into the
+  // scan's
+  for (int tile = k.t0; tile < k.t1; ++tile) {
+    size_t i = (size_t)tile * PW_TILE + t;
+    if constexpr (!LEVEL) k.Gm[i] = a.g0[(size_t)b * N + i];
     pw_plan_tile(k.segrow, tile, nt, k.pl, iw);
+    if (count) pw_stats_point(k.P, S, TZ + sp, st, N, i, sp, trash);
+  }
+  if (count) {
+    __syncthreads();
+    pw_stats_merge(st, L.work + (size_t)b * 8 * sp, sp);
   }
   pw_scan_barrier(bar, G, &epoch);
   if (g == 0) pw_plan_offsets(nt, sp, k.pl, iw);
+  if constexpr (LEVEL) {
+    // the block's nodes: their stats and early-outs
+    for (int q = t; q < k.nloc; q += PW_TILE) {
+      int s = g + q * G;
+      float v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (count) {
+          v[r] = pw_stats_value(L.work + (size_t)b * 8 * sp, sp, r, s);
+          L.ns[((size_t)b * 8 + r) * sp + s] = v[r];
+        } else {
+          v[r] = NS[r * sp + s];
+        }
+      }
+      if (pw_early_out_node(v, T[2 * sp + s], __ldcg(TZ + sp + s), F, sp, s,
+                            L.is_level0, L.flat_area, L.flat_dz,
+                            L.flat_minpts, L.min_seed))
+        atomicOr(L.any_def + b, 1);
+    }
+  }
   pw_scan_barrier(bar, G, &epoch);
   for (int tile = k.t0; tile < k.t1; ++tile)
     pw_plan_places(tile, nt, k.pl);
   if constexpr (LEVEL) {
-    for (int j = t; j < sp; j += PW_TILE)
-      k.tab[7 * sp + j] = a.tau[(size_t)b * sp + j];
+    for (int j = t; j < sp; j += PW_TILE) k.tab[7 * sp + j] = __ldcg(TZ + j);
+    // the deficient rounds, in a scan with a deficient node
+    if (__ldcg(L.any_def + b)) {
+      for (int r = 0; r < L.min_seed; ++r) {
+        unsigned* D = L.def + ((size_t)r * L.B + b) * 2 * sp;
+        for (int tile = k.t0; tile < k.t1; ++tile)
+          pw_def_min_point(k.P, S, F, D, N, (size_t)tile * PW_TILE + t, sp,
+                           trash);
+        pw_scan_barrier(bar, G, &epoch);
+        for (int tile = k.t0; tile < k.t1; ++tile)
+          pw_def_imin_point(k.P, S, F, D, N, (size_t)tile * PW_TILE + t, sp,
+                            trash);
+        pw_scan_barrier(bar, G, &epoch);
+        for (int tile = k.t0; tile < k.t1; ++tile)
+          pw_def_pick_point(k.P, S, F, D, N, (size_t)tile * PW_TILE + t, sp,
+                            trash);
+      }
+    }
   } else {
     for (int j = t; j < 7 * sp; j += PW_TILE) k.tab[j] = 0.f;
   }
   pw_scan_barrier(bar, G, &epoch);
 
-  // sweep 0 is the seeded moments (zero table, can = 0; the level layout
-  // is handed seed_init's sums instead); then the loop of
-  // fit_pallas.py:487-514
+  // sweep 0 is the seeded moments (the fit layout: a zero table, can = 0;
+  // the level layout: the labels, seeds and their sums); then the loop of
+  // fit_pallas.py:487-514 (the level layout's 1357-1425)
   bool with_can = false, last_fit = false;
   int sweep = 0;
   for (int it = 0;; ++sweep) {
     if (LEVEL && sweep == 0) {
-      const float* M1 = a.m1 + (size_t)b * R * sp;
-      for (int j = t; j < k.nloc * R; j += PW_TILE) {
-        int q = j / R, r = j - q * R;
-        m1s[j] = M1[r * sp + g + q * G];
+      for (int tile = k.t0; tile < k.t1; ++tile) {
+        size_t i = (size_t)tile * PW_TILE + t;
+        int K = pw_tile_runs(tile, k.pl, k.sstart, k.sdest);
+        float v[R];
+        pw_seed_point<FAST>(k.P, S, F, N, i, sp, trash, v);
+        pw_tile_compact_sums<R>(k.vals, k.sstart, k.sdest, v,
+                                (int)__ldcg(k.pl.pos + i), K, k.part);
       }
-      __syncthreads();
     } else {
       pw_fit_apply<FAST, LEVEL>(k, with_can);
-      pw_scan_barrier(bar, G, &epoch);
-      pw_fit_chains<R>(k, m1s);
     }
+    pw_scan_barrier(bar, G, &epoch);
+    pw_fit_chains<R>(k, m1s);
     // the block's nodes: sums, changed flag, centroid, can and, in fast
     // mode, the normal (make_tab, fit_pallas.py:472-485 and 1357-1369)
     for (int q = t; q < k.nloc; q += PW_TILE) {
@@ -297,7 +413,7 @@ __global__ void __launch_bounds__(PW_TILE, 5)
       k.tabg[sp + s] = m[2] / n;
       k.tabg[2 * sp + s] = m[3] / n;
       float can = m[0] >= 3.f ? 1.f : 0.f;
-      if constexpr (LEVEL) can = a.fit[(size_t)b * sp + s] * can;
+      if constexpr (LEVEL) can = __ldcg(F + 2 * sp + s) * can;
       k.tabg[6 * sp + s] = can;
       if constexpr (FAST) {
         float c[6];
@@ -333,37 +449,63 @@ __global__ void __launch_bounds__(PW_TILE, 5)
       __syncthreads();
     }
   }
-  // the level layout ran no sweep 0
-  if (g == 0 && t == 0) a.sweeps[b] = LEVEL ? sweep : sweep + 1;
-  constexpr int RO = LEVEL ? R : 8;          // rows of the sums handed back
-  float* O = a.stats + (size_t)b * RO * sp;
-  for (int q = t; q < k.nloc; q += PW_TILE) {
-    int s = g + q * G;
+  if (g == 0 && t == 0) a.sweeps[b] = sweep + 1;
+
+  if constexpr (LEVEL) {
+    // split decision by the owners, then the finish over the block's tiles
+    for (int q = t; q < k.nloc; q += PW_TILE) {
+      int s = g + q * G;
+      pw_split_node(m1s[q * R], m1s[q * R + 4], __ldcg(F + 2 * sp + s),
+                    NS[s], T, O, sp, s);
+    }
+    pw_scan_barrier(bar, G, &epoch);
+    for (int tile = k.t0; tile < k.t1; ++tile)
+      pw_finish_point(S, F + 2 * sp, O, N, (size_t)tile * PW_TILE + t,
+                      trash);
+    for (int q = t; q < k.nloc; q += PW_TILE) {
+      int s = g + q * G;
+      O[3 * sp + s] = NS[s];
+      O[4 * sp + s] = NS[sp + s];
+      if (!a.median) {
+        O[5 * sp + s] = TZ[s];
+        O[6 * sp + s] = TZ[sp + s];
+      }
+      O[7 * sp + s] = 0.f;
+    }
+  } else {
+    for (int q = t; q < k.nloc; q += PW_TILE) {
+      int s = g + q * G;
 #pragma unroll
-    for (int r = 0; r < RO; ++r)
-      O[r * sp + s] = (LEVEL || r < 6) ? m1s[q * R + r] : 0.f;
+      for (int r = 0; r < 8; ++r) O[r * sp + s] = r < 6 ? m1s[q * R + r] : 0.f;
+    }
   }
 }
 
 // smem, everywhere below: the dynamic shared memory of one block in bytes,
-// fit_cuda.fit_level_smem_bytes(sp, fast, level), which sizes the kernel's
+// fit_cuda.fit_level_smem_bytes(sp, fast, level), which sizes the kernels'
 // carve-up above (the node sums for one block per scan).  Above what the
 // card grants a block, cudaFuncSetAttribute refuses it.
 
+static const void* pw_fit_kernel(int fast, int level) {
+  if (level)
+    return fast ? (const void*)pw_fit_level_kernel<true, true>
+                : (const void*)pw_fit_level_kernel<false, true>;
+  return fast ? (const void*)pw_fit_level_kernel<true, false>
+              : (const void*)pw_fit_level_kernel<false, false>;
+}
+
 // The blocks a scan gets when the caller names none: the co-resident blocks
 // of the card divided by B, at most one per tile.  < 0: -(CUDA error).
-template <bool FAST, bool LEVEL>
-static int pw_fit_auto_blocks(int B, int N, int smem) {
+static int pw_fit_auto_blocks(const void* kernel, int B, int N, int smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      pw_fit_level_kernel<FAST, LEVEL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pw_fit_level_kernel<FAST, LEVEL>, PW_TILE, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      PW_TILE, smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return -(int)e;
@@ -373,17 +515,16 @@ static int pw_fit_auto_blocks(int B, int N, int smem) {
   return G > 1 ? G : 1;
 }
 
-template <bool FAST, bool LEVEL>
-static int pw_fit_level_launch(PwFitArgs a, int B, int smem, cudaStream_t st) {
+static int pw_fit_launch(const void* kernel, PwFitArgs a, int B, int smem,
+                         cudaStream_t st) {
   // sets the kernel's shared-memory attribute too
-  int G = pw_fit_auto_blocks<FAST, LEVEL>(B, a.N, smem);
+  int G = pw_fit_auto_blocks(kernel, B, a.N, smem);
   if (G < 0) return -G;
   if (a.G <= 0) a.G = G;
   void* args[] = {&a};
   // refused (and never run) where B * G blocks cannot be resident together
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)pw_fit_level_kernel<FAST, LEVEL>, dim3(B * a.G),
-      dim3(PW_TILE), args, smem, st);
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(B * a.G),
+                                              dim3(PW_TILE), args, smem, st);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
@@ -402,43 +543,71 @@ PW_EXPORT int pw_fit_level(const float* p, const float* g0, float* g,
                            int* sweeps, int B, int N, int sp, int cap,
                            int max_iter, int fast, int blocks, int smem,
                            void* stream) {
-  PwFitArgs a = {p, g0, g, stats, nullptr, nullptr, nullptr,
-                 {pos, start, tile_node, tile_off, bitmap, node_off, dest},
-                 partial, tab, flag, bar, sweeps, N, sp, cap, max_iter, blocks,
-                 0};
-  cudaStream_t st = (cudaStream_t)stream;
-  return fast ? pw_fit_level_launch<true, false>(a, B, smem, st)
-              : pw_fit_level_launch<false, false>(a, B, smem, st);
+  PwFitArgs a = {};
+  a.p = p;
+  a.g0 = g0;
+  a.g = g;
+  a.stats = stats;
+  a.plan = {pos, start, tile_node, tile_off, bitmap, node_off, dest};
+  a.partial = partial;
+  a.tab = tab;
+  a.flag = flag;
+  a.bar = bar;
+  a.sweeps = sweeps;
+  a.N = N;
+  a.sp = sp;
+  a.cap = cap;
+  a.max_iter = max_iter;
+  a.G = blocks;
+  return pw_fit_launch(pw_fit_kernel(fast, 0), a, B, smem,
+                       (cudaStream_t)stream);
 }
 
-// The level path's fit loop in one launch: pts (B, 8, N), state (B, 4, N)
-// (row 0, the mask, updated in place; row 3 the node ids), m1 (B, R, sp)
-// seed_init's sums, fit and tau (B, sp); stats (B, R, sp) gets the final
-// sums, R = 12 in fast mode, else 6.  The rest as pw_fit_level.
-PW_EXPORT int pw_level_fit(const float* pts, float* state, const float* m1,
-                           const float* fit, const float* tau, float* stats,
-                           unsigned char* pos, unsigned char* start,
-                           int* tile_node, int* tile_off, unsigned* bitmap,
-                           int* node_off, int* dest, float* partial,
-                           float* tab, int* flag, int* bar, int* sweeps, int B,
-                           int N, int sp, int cap, int trash, int max_iter,
-                           int fast, int blocks, int smem, void* stream) {
-  PwFitArgs a = {pts, nullptr, state, stats, m1, fit, tau,
-                 {pos, start, tile_node, tile_off, bitmap, node_off, dest},
-                 partial, tab, flag, bar, sweeps, N, sp, cap, max_iter, blocks,
-                 trash};
-  cudaStream_t st = (cudaStream_t)stream;
-  return fast ? pw_fit_level_launch<true, true>(a, B, smem, st)
-              : pw_fit_level_launch<false, true>(a, B, smem, st);
+// One engine level in one launch: pts (B, 8, N), state (B, 4, N) (rows 0-2
+// seeded from pts, row 3 the node ids unless median is given; updated in
+// place), tables (B, 8, sp); median and axis (B, sp) on a remap level, else
+// null; tz (B, 2, sp) and nstats (B, 8, sp) handed in, or null; out (B, 8,
+// sp) the level's stats.  pnode, flags and ns are scratch (see
+// PwLevelArgs), work, any_def and def zeroed scratch; the rest as
+// pw_fit_level, R = 12 in fast mode, else 6.
+PW_EXPORT int pw_level_core(
+    const float* pts, float* state, const float* tables, const float* median,
+    const float* axis, const float* tz, const float* nstats, float* out,
+    unsigned char* pos, unsigned char* start, int* tile_node, int* tile_off,
+    unsigned* bitmap, int* node_off, int* dest, float* partial, float* tab,
+    float* pnode, float* flags, float* ns, unsigned* work, int* any_def,
+    unsigned* def, int* flag, int* bar, int* sweeps, int B, int N, int sp,
+    int cap, int trash, int max_iter, int fast, int blocks, int smem,
+    int is_level0, int min_seed, int flat_minpts, float flat_area,
+    float flat_dz, void* stream) {
+  PwFitArgs a = {};
+  a.p = pts;
+  a.g = state;
+  a.stats = out;
+  a.tables = tables;
+  a.median = median;
+  a.axis = axis;
+  a.plan = {pos, start, tile_node, tile_off, bitmap, node_off, dest};
+  a.partial = partial;
+  a.tab = tab;
+  a.flag = flag;
+  a.bar = bar;
+  a.sweeps = sweeps;
+  a.N = N;
+  a.sp = sp;
+  a.cap = cap;
+  a.max_iter = max_iter;
+  a.G = blocks;
+  a.trash = trash;
+  a.lv = {tz, nstats, pnode, flags, ns, work, any_def, def, B, is_level0,
+          min_seed, flat_minpts, flat_area, flat_dz};
+  return pw_fit_launch(pw_fit_kernel(fast, 1), a, B, smem,
+                       (cudaStream_t)stream);
 }
 
 // Blocks per scan of an automatic launch (> 0), or -(CUDA error); level:
-// of pw_level_fit, else of pw_fit_level.
+// of pw_level_core, else of pw_fit_level.
 PW_EXPORT int pw_fit_level_blocks(int B, int N, int fast, int level,
                                   int smem) {
-  if (level)
-    return fast ? pw_fit_auto_blocks<true, true>(B, N, smem)
-                : pw_fit_auto_blocks<false, true>(B, N, smem);
-  return fast ? pw_fit_auto_blocks<true, false>(B, N, smem)
-              : pw_fit_auto_blocks<false, false>(B, N, smem);
+  return pw_fit_auto_blocks(pw_fit_kernel(fast, level), B, N, smem);
 }

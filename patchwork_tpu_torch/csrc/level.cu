@@ -1,73 +1,78 @@
-// One engine level as a short sequence of kernels, driven from Python
-// (segment/engine.py _level) around the sweeps of sweeps.cu and the order
-// statistic of orderstat.cu.
+// One engine level's phases as kernels of their own, and the remap's
+// per-parent sums.
 //
 // Replaces patchwork_tpu/kernels/fit_pallas.py level_megakernel ->
-// _level_kernel (789-1462, wrapper 1465-1558): the remap prologue R1-R5
-// (856-1010), node stats (1012-1054), early-outs (1104-1118), the deficient
-// "3 lowest-z" fallback (1120-1193), seed init fused with the first sweep
+// _level_kernel (789-1462, wrapper 1465-1558), with the level layout of
+// pw_fit_level_kernel (fitloop.cu): the remap prologue R1-R5 (856-1010),
+// node stats (1012-1054), early-outs (1104-1118), the deficient "3
+// lowest-z" fallback (1120-1193), seed init fused with the first sweep
 // (1371-1409), the plane table of every fit iteration (_plane_rows,
 // 311-377; make_tab, 1357-1369), the split decision (1427-1439) and the
 // finishing of non-split nodes (1441-1462).
 //
-// The TPU runs the whole level as one launch over a VMEM-resident cloud.
-// Here the cloud stays in device memory and each phase is one kernel:
-// per-point kernels are one pass over the packed points each and bound by
-// memory bandwidth; per-node kernels run one thread per node (the remap
-// prefix one thread per scan) and are bound by launch latency.  Min, max
-// and counts use integer atomics on order-preserving keys, exact in any
-// order; sums use the fixed-order tile scheme.  The TPU's dirty-tile
-// caches and live-tile skip are left out: every sweep is dense.
-#include "common.cuh"
-
-#include <limits.h>
+// The TPU runs the whole level as one launch over a VMEM-resident cloud;
+// so does the card, in one co-operative launch (pw_level_core), wherever
+// a block holds the node table in shared memory.  The kernels here are the
+// same phases one launch each, with the same device code (level.cuh): they
+// run where that launch cannot hold the table (Sp above ~2700), around the
+// loop of sweeps (fit_cuda.level_sequence), and, for percentile seeds, the
+// node stats and (on remap levels) R3-R5 ahead of the one launch.
+// Per-point kernels are one pass over the packed points and bound by
+// memory; per-node kernels one thread per node, bound by launch latency.
+//
+// R1 and R1b sum over the parent ids, new on every call and used once.
+// Each is one launch with pw_seg_sum's device code (pw_dense_sum_tile,
+// tile_sums.cuh): a block finds its tile's runs in shared memory, writes
+// each present parent's partial and the scan's last block adds them in tile
+// order.  A plan built for the call was measured slower for such ids
+// (PERF.md, the no-binding segment sum).  The seed sums above the card's
+// gate add over the level's sweep plan, as the apply sweep does.
+#include "level.cuh"
 
 #define PW_STATS_CHUNK 4096
-#define PW_BIG 3.0e38f
 
 static inline dim3 pw_point_grid(int N, int B) {
   return dim3((N + 255) / 256, B);
 }
 
 // ---------------------------------------------------------------------------
-// R1: per-parent sums [cnt, sx, sy] (+ raw [xx, yy] in fast mode)
+// R1 (fit_pallas.py:885-903): per-parent sums [cnt, sx, sy] (+ raw [xx, yy]
+// in fast mode) of the live points; parent id = pts row 3
 // ---------------------------------------------------------------------------
 template <bool FAST>
-__global__ void pw_r1_partials(const float* __restrict__ pts,
-                               float* __restrict__ partial, int N, int sp,
-                               int trash) {
+__global__ void __launch_bounds__(PW_TILE)
+    pw_r1_kernel(const float* __restrict__ pts, float* partial, unsigned* ws,
+                 float* __restrict__ out, int N, int sp, int trash) {
   constexpr int R = FAST ? 5 : 3;
-  __shared__ float vals[R][PW_TILE];
-  __shared__ int segs[PW_TILE];
-  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
-  size_t i = (size_t)tile * PW_TILE + t;
-  const float* P = pts + (size_t)b * 8 * N;
+  __shared__ PwDenseSmem<R> sm;
+  extern __shared__ int ids[];
+  size_t i = (size_t)blockIdx.x * PW_TILE + threadIdx.x;
+  const float* P = pts + (size_t)blockIdx.y * 8 * N;
   float x = P[i], y = P[(size_t)N + i];
   float pseg = P[3 * (size_t)N + i];
   float a = pseg < (float)trash ? 1.f : 0.f;
   float xa = x * a, ya = y * a;
-  vals[0][t] = a;
-  vals[1][t] = xa;
-  vals[2][t] = ya;
+  float v[R];
+  v[0] = a;
+  v[1] = xa;
+  v[2] = ya;
   if constexpr (FAST) {
-    vals[3][t] = x * xa;
-    vals[4][t] = y * ya;
+    v[3] = x * xa;
+    v[4] = y * ya;
   }
-  segs[t] = (int)pseg;
-  __syncthreads();
-  pw_tile_accumulate<R>(vals, segs, sp,
-                        partial + ((size_t)b * nt + tile) * R * sp);
+  pw_dense_sum_tile<R>(sm, ids, v, (int)pseg, partial, ws, out, sp);
 }
 
-// R1, exact mode's second pass: centered [sum dx^2, sum dy^2] per parent.
-__global__ void pw_r1b_partials(const float* __restrict__ pts,
-                                const float* __restrict__ cxy,
-                                float* __restrict__ partial, int N, int sp,
-                                int trash) {
-  __shared__ float vals[2][PW_TILE];
-  __shared__ int segs[PW_TILE];
-  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
-  size_t i = (size_t)tile * PW_TILE + t;
+// R1, exact mode's second pass (fit_pallas.py:910-928): centered [sum dx^2,
+// sum dy^2] per parent about the parent centroids cxy (B, 2, sp).
+__global__ void __launch_bounds__(PW_TILE)
+    pw_r1b_kernel(const float* __restrict__ pts,
+                  const float* __restrict__ cxy, float* partial, unsigned* ws,
+                  float* __restrict__ out, int N, int sp, int trash) {
+  __shared__ PwDenseSmem<2> sm;
+  extern __shared__ int ids[];
+  int b = blockIdx.y;
+  size_t i = (size_t)blockIdx.x * PW_TILE + threadIdx.x;
   const float* P = pts + (size_t)b * 8 * N;
   const float* C = cxy + (size_t)b * 2 * sp;
   float pseg = P[3 * (size_t)N + i];
@@ -75,137 +80,71 @@ __global__ void pw_r1b_partials(const float* __restrict__ pts,
   float a = pseg < (float)trash ? 1.f : 0.f;
   float dx = (P[i] - C[s]) * a;
   float dy = (P[(size_t)N + i] - C[sp + s]) * a;
-  vals[0][t] = dx * dx;
-  vals[1][t] = dy * dy;
-  segs[t] = s;
-  __syncthreads();
-  pw_tile_accumulate<2>(vals, segs, sp,
-                        partial + ((size_t)b * nt + tile) * 2 * sp);
+  float v[2] = {dx * dx, dy * dy};
+  pw_dense_sum_tile<2>(sm, ids, v, s, partial, ws, out, sp);
 }
 
 // ---------------------------------------------------------------------------
-// R3 + R4: compact child slots and inherited tau/zth, one thread per scan
+// R3 + R4, one block per scan; R5, a thread per point
 // ---------------------------------------------------------------------------
-__global__ void pw_remap_nodes_kernel(const float* __restrict__ tables,
-                                      const float* __restrict__ median,
-                                      const float* __restrict__ axis,
-                                      float* __restrict__ pnode,
-                                      float* __restrict__ tz, int sp,
-                                      int trash) {
-  if (threadIdx.x != 0) return;
-  int b = blockIdx.x;
-  const float* T = tables + (size_t)b * 8 * sp;
-  const float* M = median + (size_t)b * sp;
-  const float* A = axis + (size_t)b * sp;
-  float* Q = pnode + (size_t)b * 4 * sp;
-  float* Z = tz + (size_t)b * 2 * sp;
-  for (int s = 0; s < 2 * sp; ++s) Z[s] = 0.f;
-  float rank = 0.f;  // #{earlier split parents}
-  for (int j = 0; j < sp; ++j) {
-    float split = T[6 * sp + j];
-    float base = 2.f * rank;
-    float ok = split * ((base + 1.f) < (float)trash ? 1.f : 0.f);
-    Q[j] = M[j];
-    Q[sp + j] = ok;
-    Q[2 * sp + j] = base;
-    Q[3 * sp + j] = A[j];
-    if (ok > 0.5f) {
-      int d = (int)base;
-      Z[d] = T[j];
-      Z[d + 1] = T[j];
-      Z[sp + d] = T[sp + j];
-      Z[sp + d + 1] = T[sp + j];
-    }
-    rank += split;
-  }
+__global__ void __launch_bounds__(PW_TILE)
+    pw_remap_nodes_kernel(const float* __restrict__ tables,
+                          const float* __restrict__ median,
+                          const float* __restrict__ axis,
+                          float* __restrict__ pnode, float* __restrict__ tz,
+                          int sp, int trash) {
+  __shared__ int ws[33];
+  size_t b = blockIdx.x;
+  pw_remap_nodes_block(tables + b * 8 * sp, median + b * sp, axis + b * sp,
+                       pnode + b * 4 * sp, tz + b * 2 * sp, sp, trash, ws);
 }
 
-// R5: move each live point to its parent's left/right child slot.
 __global__ void pw_remap_points_kernel(const float* __restrict__ pts,
                                        float* __restrict__ state,
                                        const float* __restrict__ pnode, int N,
                                        int sp, int trash) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  int b = blockIdx.y;
-  const float* P = pts + (size_t)b * 8 * N;
-  float* S = state + (size_t)b * 4 * N;
-  const float* Q = pnode + (size_t)b * 4 * sp;
-  float pseg = P[3 * (size_t)N + i];
-  int s = (int)pseg;
-  float tr = (float)trash;
-  float a = pseg < tr ? 1.f : 0.f;
-  float med = Q[s], okg = Q[sp + s], slot = Q[2 * sp + s], ax = Q[3 * sp + s];
-  float v = ax * P[i] + (1.f - ax) * P[(size_t)N + i];
-  float gr = v > med ? 1.f : 0.f;
-  float newseg = okg * (slot + gr) + (1.f - okg) * tr;
-  S[3 * (size_t)N + i] = a * newseg + (1.f - a) * tr;
-  S[(size_t)N + i] = fmaxf(S[(size_t)N + i], a * (1.f - okg));
+  size_t b = blockIdx.y;
+  pw_remap_point(pts + b * 8 * N, state + b * 4 * N, pnode + b * 4 * sp, N,
+                 i, sp, trash);
 }
 
 // ---------------------------------------------------------------------------
-// phase 1: node stats [cnt, seed_cnt, xmin, ymin, zmin, xmax, ymax, zmax]
+// node stats: a block's chunk into a shared table, merged into the scan's
+// zeroed table, then the floats
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ int pw_stats_init_value(int row) {
-  return row < 2 ? 0 : (row < 5 ? PW_KEY_POS_INF : PW_KEY_NEG_INF);
-}
-
-__global__ void pw_stats_init(int* __restrict__ work, int n, int sp) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < n) work[idx] = pw_stats_init_value((idx / sp) % 8);
-}
-
 __global__ void pw_stats_points(const float* __restrict__ pts,
                                 const float* __restrict__ state,
                                 const float* __restrict__ zth,
-                                int* __restrict__ work, int N, int sp,
+                                unsigned* __restrict__ work, int N, int sp,
                                 int trash) {
-  extern __shared__ int sh[];  // (8, sp)
-  for (int j = threadIdx.x; j < 8 * sp; j += blockDim.x)
-    sh[j] = pw_stats_init_value(j / sp);
+  extern __shared__ unsigned sh[];  // (8, sp)
+  for (int j = threadIdx.x; j < 8 * sp; j += blockDim.x) sh[j] = 0u;
   __syncthreads();
-  int b = blockIdx.y;
-  const float* P = pts + (size_t)b * 8 * N;
-  const float* S = state + (size_t)b * 4 * N;
-  const float* Zt = zth ? zth + (size_t)b * sp : nullptr;
+  size_t b = blockIdx.y;
+  const float* P = pts + b * 8 * N;
+  const float* S = state + b * 4 * N;
+  const float* Zt = zth ? zth + b * sp : nullptr;
   int start = blockIdx.x * PW_STATS_CHUNK;
   int end = min(start + PW_STATS_CHUNK, N);
-  for (int i = start + threadIdx.x; i < end; i += blockDim.x) {
-    float segf = S[3 * (size_t)N + i];
-    if (!(segf < (float)trash)) continue;
-    int s = (int)segf;
-    float x = P[i], y = P[(size_t)N + i], z = P[2 * (size_t)N + i];
-    atomicAdd(&sh[s], 1);
-    if (Zt && z < Zt[s]) atomicAdd(&sh[sp + s], 1);
-    int kx = pw_f32_key(x), ky = pw_f32_key(y), kz = pw_f32_key(z);
-    atomicMin(&sh[2 * sp + s], kx);
-    atomicMin(&sh[3 * sp + s], ky);
-    atomicMin(&sh[4 * sp + s], kz);
-    atomicMax(&sh[5 * sp + s], kx);
-    atomicMax(&sh[6 * sp + s], ky);
-    atomicMax(&sh[7 * sp + s], kz);
-  }
+  for (int i = start + threadIdx.x; i < end; i += blockDim.x)
+    pw_stats_point(P, S, Zt, sh, N, i, sp, trash);
   __syncthreads();
-  int* W = work + (size_t)b * 8 * sp;
-  for (int s = threadIdx.x; s < sp; s += blockDim.x) {
-    if (sh[s] == 0) continue;
-    atomicAdd(&W[s], sh[s]);
-    atomicAdd(&W[sp + s], sh[sp + s]);
-    for (int r = 2; r < 5; ++r) atomicMin(&W[r * sp + s], sh[r * sp + s]);
-    for (int r = 5; r < 8; ++r) atomicMax(&W[r * sp + s], sh[r * sp + s]);
-  }
+  pw_stats_merge(sh, work + b * 8 * sp, sp);
 }
 
-__global__ void pw_stats_finish(const int* __restrict__ work,
+__global__ void pw_stats_finish(const unsigned* __restrict__ work,
                                 float* __restrict__ out, int n, int sp) {
   int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  int row = (idx / sp) % 8;
-  out[idx] = row < 2 ? (float)work[idx] : pw_key_f32(work[idx]);
+  int s = idx % sp, r = (idx / sp) % 8;
+  out[idx] = pw_stats_value(work + (size_t)(idx / (8 * sp)) * 8 * sp, sp, r,
+                            s);
 }
 
 // ---------------------------------------------------------------------------
-// phase 2: early-outs in the reference's order (cpp:111-140)
+// early-outs, one thread per node
 // ---------------------------------------------------------------------------
 __global__ void pw_early_outs_kernel(const float* __restrict__ nstats,
                                      const float* __restrict__ tables,
@@ -219,161 +158,66 @@ __global__ void pw_early_outs_kernel(const float* __restrict__ nstats,
   if (idx >= B * sp) return;
   int b = idx / sp, s = idx % sp;
   const float* NS = nstats + (size_t)b * 8 * sp;
-  const float* T = tables + (size_t)b * 8 * sp;
-  float* F = flags + (size_t)b * 5 * sp;
-  float cnt = NS[s], seed = NS[sp + s];
-  float xmin = NS[2 * sp + s], ymin = NS[3 * sp + s], zmin = NS[4 * sp + s];
-  float xmax = NS[5 * sp + s], ymax = NS[6 * sp + s], zmax = NS[7 * sp + s];
-  bool real = T[2 * sp + s] > 0.5f;
-  bool too_small = cnt < 3.f;
-  float area = (xmax - xmin) * (ymax - ymin);
-  bool flat_a = is_level0 ? false : ((area < flat_area) && !too_small);
-  bool flat_z = ((zmax - zmin) < flat_dz) && (cnt > (float)flat_minpts) &&
-                !too_small && !flat_a;
-  bool finished = real && (too_small || flat_a || flat_z);
-  bool fit = real && !finished;
-  bool def = fit && (seed < (float)min_seed);
-  F[s] = finished ? 1.f : 0.f;
-  F[sp + s] = (flat_a || flat_z) ? 1.f : 0.f;
-  F[2 * sp + s] = fit ? 1.f : 0.f;
-  F[3 * sp + s] = def ? 1.f : 0.f;
-  F[4 * sp + s] = zth[(size_t)b * sp + s];
-  if (def) atomicOr(&any_def[b], 1);
+  float v[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) v[r] = NS[r * sp + s];
+  if (pw_early_out_node(v, tables[((size_t)b * 8 + 2) * sp + s],
+                        zth[(size_t)b * sp + s], flags + (size_t)b * 5 * sp,
+                        sp, s, is_level0, flat_area, flat_dz, flat_minpts,
+                        min_seed))
+    atomicOr(&any_def[b], 1);
 }
 
 // ---------------------------------------------------------------------------
-// phase 3: one round of the deficient-node "lowest-z" pick (cpp:171-182)
+// one deficient round: its three steps, a thread per point; D (B, 2, sp)
 // ---------------------------------------------------------------------------
-__global__ void pw_def_init(int* __restrict__ zmin, int* __restrict__ imin,
-                            int n) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  zmin[idx] = PW_KEY_POS_INF;
-  imin[idx] = INT_MAX;
-}
-
-// Candidate: live, of a deficient node, not chosen yet.  Returns the node.
-__device__ __forceinline__ int pw_def_cand(const float* P, const float* S,
-                                           const float* F, size_t N, int i,
-                                           int sp, int trash) {
-  float segf = S[3 * N + i];
-  if (!(segf < (float)trash)) return -1;
-  int s = (int)segf;
-  if (!(F[3 * sp + s] > 0.5f) || !(S[2 * N + i] < 0.5f)) return -1;
-  return s;
-}
-
-__device__ __forceinline__ float pw_min_z(const int* zmin, int s) {
-  float m = pw_key_f32(zmin[s]);
-  return isfinite(m) ? m : PW_BIG;
-}
-
-__global__ void pw_def_min(const float* __restrict__ pts,
-                           const float* __restrict__ state,
-                           const float* __restrict__ flags,
-                           const int* __restrict__ any_def,
-                           int* __restrict__ zmin, int N, int sp, int trash) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int b = blockIdx.y;
-  if (i >= N || !any_def[b]) return;
-  const float* P = pts + (size_t)b * 8 * N;
-  int s = pw_def_cand(P, state + (size_t)b * 4 * N, flags + (size_t)b * 5 * sp,
-                      N, i, sp, trash);
-  if (s < 0) return;
-  atomicMin(&zmin[(size_t)b * sp + s], pw_f32_key(P[2 * (size_t)N + i]));
-}
-
-__global__ void pw_def_imin(const float* __restrict__ pts,
-                            const float* __restrict__ state,
-                            const float* __restrict__ flags,
-                            const int* __restrict__ any_def,
-                            const int* __restrict__ zmin,
-                            int* __restrict__ imin, int N, int sp, int trash) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int b = blockIdx.y;
-  if (i >= N || !any_def[b]) return;
-  const float* P = pts + (size_t)b * 8 * N;
-  int s = pw_def_cand(P, state + (size_t)b * 4 * N, flags + (size_t)b * 5 * sp,
-                      N, i, sp, trash);
-  if (s < 0) return;
-  if (P[2 * (size_t)N + i] == pw_min_z(zmin + (size_t)b * sp, s))
-    atomicMin(&imin[(size_t)b * sp + s], (int)P[6 * (size_t)N + i]);
-}
-
-__global__ void pw_def_pick(const float* __restrict__ pts,
+template <int STEP>
+__global__ void pw_def_step(const float* __restrict__ pts,
                             float* __restrict__ state,
                             const float* __restrict__ flags,
                             const int* __restrict__ any_def,
-                            const int* __restrict__ zmin,
-                            const int* __restrict__ imin, int N, int sp,
+                            unsigned* __restrict__ D, int N, int sp,
                             int trash) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int b = blockIdx.y;
+  size_t b = blockIdx.y;
   if (i >= N || !any_def[b]) return;
-  const float* P = pts + (size_t)b * 8 * N;
-  float* S = state + (size_t)b * 4 * N;
-  int s = pw_def_cand(P, S, flags + (size_t)b * 5 * sp, N, i, sp, trash);
-  if (s < 0) return;
-  int mi = imin[(size_t)b * sp + s];
-  float mi_f = mi == INT_MAX ? PW_BIG : (float)mi;
-  if (P[2 * (size_t)N + i] == pw_min_z(zmin + (size_t)b * sp, s) &&
-      P[6 * (size_t)N + i] == mi_f)
-    S[2 * (size_t)N + i] = 1.f;
+  const float* P = pts + b * 8 * N;
+  float* S = state + b * 4 * N;
+  const float* F = flags + b * 5 * sp;
+  unsigned* Db = D + b * 2 * sp;
+  if (STEP == 0) pw_def_min_point(P, S, F, Db, N, i, sp, trash);
+  if (STEP == 1) pw_def_imin_point(P, S, F, Db, N, i, sp, trash);
+  if (STEP == 2) pw_def_pick_point(P, S, F, Db, N, i, sp, trash);
 }
 
 // ---------------------------------------------------------------------------
-// phase 4: early-out labels + seed init, fused with the first moment sweep
+// labels, seeds and the first sums over the level's sweep plan, one tile of
+// one scan per block (the apply sweep's scheme, sweeps.cu)
 // ---------------------------------------------------------------------------
 template <bool FAST>
-__global__ void pw_seed_partials(const float* __restrict__ pts,
-                                 float* __restrict__ state,
-                                 const float* __restrict__ flags,
-                                 float* __restrict__ partial, int N, int sp,
-                                 int trash) {
+__global__ void __launch_bounds__(PW_TILE)
+    pw_seed_kernel(const float* __restrict__ pts, float* __restrict__ state,
+                   const float* __restrict__ flags, PwPlan plan,
+                   float* partial, float* __restrict__ out, int* done, int N,
+                   int sp, int cap, int trash) {
   constexpr int R = FAST ? 12 : 6;
-  __shared__ float vals[R][PW_TILE];
-  __shared__ int segs[PW_TILE];
-  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
-  size_t i = (size_t)tile * PW_TILE + t;
-  const float* P = pts + (size_t)b * 8 * N;
-  float* S = state + (size_t)b * 4 * N;
-  const float* F = flags + (size_t)b * 5 * sp;
-  float x = P[i], y = P[(size_t)N + i], z = P[2 * (size_t)N + i];
-  float segf = S[3 * (size_t)N + i];
-  int s = (int)segf;
-  float act = segf < (float)trash ? 1.f : 0.f;
-  float fin = F[s], lab = F[sp + s], fit = F[2 * sp + s];
-  float def = F[3 * sp + s], zth = F[4 * sp + s];
-  float seed = act * (z < zth ? 1.f : 0.f);
-  float chosen = S[2 * (size_t)N + i];
-  seed = (def * chosen + (1.f - def) * seed) * act;
-  float g = S[i];
-  float w_fin = act * fin;
-  g = w_fin * lab + (1.f - w_fin) * g;
-  float w_fit = act * fit;
-  g = w_fit * seed + (1.f - w_fit) * g;
-  S[i] = g;
-  S[(size_t)N + i] = fmaxf(S[(size_t)N + i], w_fin);
-  float gm = g * act;
-  float xg = x * gm, yg = y * gm, zg = z * gm;
-  vals[0][t] = gm;
-  vals[1][t] = xg;
-  vals[2][t] = yg;
-  vals[3][t] = zg;
-  vals[4][t] = 0.f;
-  vals[5][t] = 0.f;
-  if constexpr (FAST) {
-    vals[6][t] = x * xg;
-    vals[7][t] = y * xg;
-    vals[8][t] = z * xg;
-    vals[9][t] = y * yg;
-    vals[10][t] = z * yg;
-    vals[11][t] = z * zg;
-  }
-  segs[t] = s;
-  __syncthreads();
-  pw_tile_accumulate<R>(vals, segs, sp,
-                        partial + ((size_t)b * nt + tile) * R * sp);
+  __shared__ float vals[R * PW_TILE];
+  __shared__ int sstart[PW_TILE + 1];
+  __shared__ int sdest[PW_TILE];
+  __shared__ int full[PW_TILE];
+  __shared__ int nfull;
+  size_t b = blockIdx.y;
+  int tile = blockIdx.x;
+  size_t i = (size_t)tile * PW_TILE + threadIdx.x;
+  PwPlan pl = pw_plan_scan_of(plan, b, N, sp, cap);
+  float* part = partial + b * cap * R;
+  int K = pw_tile_runs(tile, pl, sstart, sdest);
+  float v[R];
+  pw_seed_point<FAST>(pts + b * 8 * N, state + b * 4 * N, flags + b * 5 * sp,
+                      N, i, sp, trash, v);
+  pw_tile_compact_sums<R>(vals, sstart, sdest, v, (int)pl.pos[i], K, part);
+  pw_tile_finish<R>(tile, K, pl, part, out + b * R * sp, done + b * sp, sp,
+                    full, &nfull);
 }
 
 // ---------------------------------------------------------------------------
@@ -414,7 +258,7 @@ __global__ void pw_plane_table_kernel(const float* __restrict__ m1,
 }
 
 // ---------------------------------------------------------------------------
-// phase 6: residual + split decision; phase 7: finish non-split nodes
+// split decision, one thread per node; finish, one thread per point
 // ---------------------------------------------------------------------------
 __global__ void pw_split_kernel(const float* __restrict__ sf,
                                 const float* __restrict__ nstats,
@@ -426,18 +270,9 @@ __global__ void pw_split_kernel(const float* __restrict__ sf,
   if (idx >= B * sp) return;
   int b = idx / sp, s = idx % sp;
   const float* SF = sf + (size_t)b * R * sp;
-  const float* T = tables + (size_t)b * 8 * sp;
-  float gcnt = SF[s];
-  float resid = SF[4 * sp + s] / pw_clamp_lo(gcnt, 1.f);
-  if (!(gcnt >= 3.f)) resid = INFINITY;
-  bool split = flags[((size_t)b * 5 + 2) * sp + s] > 0.5f &&
-               resid > T[3 * sp + s] &&
-               nstats[(size_t)b * 8 * sp + s] >= T[4 * sp + s] &&
-               T[5 * sp + s] > 0.5f;
-  float* O = out + (size_t)b * 3 * sp;
-  O[s] = split ? 1.f : 0.f;
-  O[sp + s] = gcnt;
-  O[2 * sp + s] = resid;
+  pw_split_node(SF[s], SF[4 * sp + s], flags[((size_t)b * 5 + 2) * sp + s],
+                nstats[(size_t)b * 8 * sp + s], tables + (size_t)b * 8 * sp,
+                out + (size_t)b * 3 * sp, sp, s);
 }
 
 __global__ void pw_finish_kernel(float* __restrict__ state,
@@ -446,45 +281,47 @@ __global__ void pw_finish_kernel(float* __restrict__ state,
                                  int trash) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  int b = blockIdx.y;
-  float* S = state + (size_t)b * 4 * N;
-  float segf = S[3 * (size_t)N + i];
-  if (!(segf < (float)trash)) return;
-  int s = (int)segf;
-  if (flags[((size_t)b * 5 + 2) * sp + s] > 0.5f &&
-      sd[(size_t)b * 3 * sp + s] < 0.5f)
-    S[(size_t)N + i] = 1.f;
+  size_t b = blockIdx.y;
+  pw_finish_point(state + b * 4 * N, flags + (b * 5 + 2) * sp,
+                  sd + b * 3 * sp, N, i, trash);
 }
 
 // ---------------------------------------------------------------------------
 // C entry points
 // ---------------------------------------------------------------------------
-PW_EXPORT int pw_remap_r1(const float* pts, float* partial, float* out, int B,
-                          int N, int sp, int trash, int fast, void* stream) {
+
+// R1 and R1b: partial (B, N / PW_TILE, sp, R) scratch that is never filled,
+// ws (B * (sp * W + 1)) u32 zero between launches (left zeroed), W the
+// bitmap words of N / PW_TILE tiles.
+PW_EXPORT int pw_remap_r1(const float* pts, float* partial, unsigned* ws,
+                          float* out, int B, int N, int sp, int trash,
+                          int fast, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   dim3 grid(N / PW_TILE, B);
+  size_t ids = sp <= PW_SLOT_TABLE_MAX ? sp * sizeof(int) : 0;
   if (fast)
-    pw_r1_partials<true><<<grid, PW_TILE, 0, st>>>(pts, partial, N, sp, trash);
+    pw_r1_kernel<true><<<grid, PW_TILE, ids, st>>>(pts, partial, ws, out, N,
+                                                   sp, trash);
   else
-    pw_r1_partials<false><<<grid, PW_TILE, 0, st>>>(pts, partial, N, sp, trash);
-  pw_reduce_tiles(partial, out, B, N / PW_TILE, fast ? 5 : 3, sp, st);
+    pw_r1_kernel<false><<<grid, PW_TILE, ids, st>>>(pts, partial, ws, out, N,
+                                                    sp, trash);
   return (int)cudaGetLastError();
 }
 
 PW_EXPORT int pw_remap_r1b(const float* pts, const float* cxy, float* partial,
-                           float* out, int B, int N, int sp, int trash,
-                           void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                           unsigned* ws, float* out, int B, int N, int sp,
+                           int trash, void* stream) {
   dim3 grid(N / PW_TILE, B);
-  pw_r1b_partials<<<grid, PW_TILE, 0, st>>>(pts, cxy, partial, N, sp, trash);
-  pw_reduce_tiles(partial, out, B, N / PW_TILE, 2, sp, st);
+  size_t ids = sp <= PW_SLOT_TABLE_MAX ? sp * sizeof(int) : 0;
+  pw_r1b_kernel<<<grid, PW_TILE, ids, (cudaStream_t)stream>>>(
+      pts, cxy, partial, ws, out, N, sp, trash);
   return (int)cudaGetLastError();
 }
 
 PW_EXPORT int pw_remap_nodes(const float* tables, const float* median,
                              const float* axis, float* pnode, float* tz, int B,
                              int sp, int trash, void* stream) {
-  pw_remap_nodes_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
+  pw_remap_nodes_kernel<<<B, PW_TILE, 0, (cudaStream_t)stream>>>(
       tables, median, axis, pnode, tz, sp, trash);
   return (int)cudaGetLastError();
 }
@@ -498,16 +335,18 @@ PW_EXPORT int pw_remap_points(const float* pts, float* state,
   return (int)cudaGetLastError();
 }
 
+// work (B, 8, sp) u32 scratch, zeroed here.
 PW_EXPORT int pw_node_stats(const float* pts, const float* state,
-                            const float* zth, int* work, float* out, int B,
-                            int N, int sp, int trash, void* stream) {
+                            const float* zth, unsigned* work, float* out,
+                            int B, int N, int sp, int trash, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int n = B * 8 * sp;
-  int smem = 8 * sp * (int)sizeof(int);
+  int smem = 8 * sp * (int)sizeof(unsigned);
   cudaError_t e = cudaFuncSetAttribute(
       pw_stats_points, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(work, 0, (size_t)n * sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
-  pw_stats_init<<<(n + 255) / 256, 256, 0, st>>>(work, n, sp);
   dim3 grid((N + PW_STATS_CHUNK - 1) / PW_STATS_CHUNK, B);
   pw_stats_points<<<grid, 256, smem, st>>>(pts, state, zth, work, N, sp,
                                            trash);
@@ -527,35 +366,42 @@ PW_EXPORT int pw_early_outs(const float* nstats, const float* tables,
   return (int)cudaGetLastError();
 }
 
+// D (B, 2, sp) u32 scratch, zeroed here.
 PW_EXPORT int pw_deficient_round(const float* pts, float* state,
                                  const float* flags, const int* any_def,
-                                 int* zmin, int* imin, int B, int N, int sp,
-                                 int trash, void* stream) {
+                                 unsigned* D, int B, int N, int sp, int trash,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int n = B * sp;
+  cudaError_t e = cudaMemsetAsync(D, 0, (size_t)B * 2 * sp * sizeof(unsigned),
+                                  st);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid = pw_point_grid(N, B);
-  pw_def_init<<<(n + 127) / 128, 128, 0, st>>>(zmin, imin, n);
-  pw_def_min<<<grid, 256, 0, st>>>(pts, state, flags, any_def, zmin, N, sp,
-                                   trash);
-  pw_def_imin<<<grid, 256, 0, st>>>(pts, state, flags, any_def, zmin, imin, N,
-                                    sp, trash);
-  pw_def_pick<<<grid, 256, 0, st>>>(pts, state, flags, any_def, zmin, imin, N,
-                                    sp, trash);
+  pw_def_step<0><<<grid, 256, 0, st>>>(pts, state, flags, any_def, D, N, sp,
+                                       trash);
+  pw_def_step<1><<<grid, 256, 0, st>>>(pts, state, flags, any_def, D, N, sp,
+                                       trash);
+  pw_def_step<2><<<grid, 256, 0, st>>>(pts, state, flags, any_def, D, N, sp,
+                                       trash);
   return (int)cudaGetLastError();
 }
 
+// Over the sweep plan of state row 3 (its done counts and partials, shared
+// in stream order with the sweeps of the fit that follows).
 PW_EXPORT int pw_seed_init(const float* pts, float* state, const float* flags,
-                           float* partial, float* out, int B, int N, int sp,
-                           int trash, int fast, void* stream) {
+                           unsigned char* pos, unsigned char* start,
+                           int* tile_node, int* tile_off, int* node_off,
+                           int* dest, int* done, float* partial, float* out,
+                           int B, int N, int sp, int cap, int trash, int fast,
+                           void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  PwPlan plan = {pos, start, tile_node, tile_off, nullptr, node_off, dest};
   dim3 grid(N / PW_TILE, B);
   if (fast)
-    pw_seed_partials<true><<<grid, PW_TILE, 0, st>>>(pts, state, flags,
-                                                     partial, N, sp, trash);
+    pw_seed_kernel<true><<<grid, PW_TILE, 0, st>>>(
+        pts, state, flags, plan, partial, out, done, N, sp, cap, trash);
   else
-    pw_seed_partials<false><<<grid, PW_TILE, 0, st>>>(pts, state, flags,
-                                                      partial, N, sp, trash);
-  pw_reduce_tiles(partial, out, B, N / PW_TILE, fast ? 12 : 6, sp, st);
+    pw_seed_kernel<false><<<grid, PW_TILE, 0, st>>>(
+        pts, state, flags, plan, partial, out, done, N, sp, cap, trash);
   return (int)cudaGetLastError();
 }
 

@@ -175,89 +175,23 @@ __global__ void __launch_bounds__(PW_TILE)
                         done + (size_t)b * S, S, full, &nfull);
 }
 
-#define PW_DENSE_LOADS 16
-
-// With no binding, one tile of one scan per block: the tile's runs found
-// in shared memory, each present node's R partials written at (tile, node)
-// of partial (B, nt, S, R), which is never filled elsewhere; ws holds the
-// scans' tile bitmaps (B, S, W) and a count per scan (B), zero between
-// launches, and the last block of a scan zeroes its part again.
+// With no binding, one tile of one scan per block (pw_dense_sum_tile,
+// tile_sums.cuh): rows (B, R, N), seg (B, N).
 template <int R>
 __global__ void __launch_bounds__(PW_TILE)
     pw_seg_sum_kernel(const float* __restrict__ rows,
                       const int* __restrict__ seg, float* partial,
                       unsigned* ws, float* __restrict__ out, int N, int S) {
-  __shared__ float vals[R * PW_TILE];
-  __shared__ int iw[PW_PLAN_SMEM_INTS];
+  __shared__ PwDenseSmem<R> sm;
   extern __shared__ int ids[];     // S ints when S <= PW_SLOT_TABLE_MAX
-  __shared__ int sstart[PW_TILE + 1];
-  __shared__ int sdest[PW_TILE];
-  __shared__ int last;
-  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
-  int W = (nt + 31) / 32;
-  size_t i = (size_t)tile * PW_TILE + t;
-  unsigned* bits = ws + (size_t)b * S * W;
-  unsigned* count = ws + (size_t)gridDim.y * S * W + b;
-  float* part = partial + (size_t)b * nt * S * R;
+  int b = blockIdx.y;
+  size_t i = (size_t)blockIdx.x * PW_TILE + threadIdx.x;
   const float* X = rows + (size_t)b * R * N + i;
   float v[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) v[r] = X[(size_t)r * N];
-  int s = seg[(size_t)b * N + i];
-  PwSlots q = S <= PW_SLOT_TABLE_MAX ? pw_tile_slots_table(s, iw, ids)
-                                     : pw_tile_slots(s, iw);
-  if (t < q.K) sstart[t] = q.st;
-  if (t == 0) sstart[q.K] = PW_TILE;
-  if (q.rank == 0) {
-    sdest[q.slot] = tile * S + s;
-    atomicOr(&bits[(size_t)s * W + (tile >> 5)], 1u << (tile & 31));
-  }
-  pw_tile_compact_sums<R>(vals, sstart, sdest, v, q.pos, q.K, part);
-  __threadfence();
-  __syncthreads();
-  if (t == 0) last = atomicAdd(count, 1u) == (unsigned)(nt - 1);
-  __syncthreads();
-  if (!last) return;
-  // every tile of the scan is in: a thread per (node, row) adds the node's
-  // partials in tile order, the marked tiles of four bitmap words at a
-  // time, PW_DENSE_LOADS loads in flight (few registers: they bound the
-  // blocks an SM holds in the pass above)
-  __threadfence();
-  float* O = out + (size_t)b * R * S;
-  for (int j = t; j < S * R; j += PW_TILE) {
-    int n = j / R, r = j - n * R;
-    const unsigned* row = bits + (size_t)n * W;
-    const float* p = part + (size_t)n * R + r;
-    float acc = 0.f;
-    for (int w0 = 0; w0 < W; w0 += 4) {
-      unsigned xs[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) xs[k] = w0 + k < W ? __ldcg(row + w0 + k) : 0u;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        unsigned x = xs[k];
-        const float* pw = p + (size_t)(w0 + k) * 32 * S * R;
-        while (x) {
-          float y[PW_DENSE_LOADS];
-          unsigned z = x;
-#pragma unroll
-          for (int e = 0; e < PW_DENSE_LOADS; ++e) {
-            y[e] = z ? __ldcg(pw + (size_t)(__ffs(z) - 1) * S * R) : 0.f;
-            z &= z - 1;
-          }
-#pragma unroll
-          for (int e = 0; e < PW_DENSE_LOADS; ++e) {
-            if (x) acc += y[e];
-            x &= x - 1;
-          }
-        }
-      }
-    }
-    O[r * S + n] = acc;
-  }
-  __syncthreads();
-  for (int j = t; j < S * W; j += PW_TILE) bits[j] = 0u;
-  if (t == 0) *count = 0u;
+  pw_dense_sum_tile<R>(sm, ids, v, seg[(size_t)b * N + i], partial, ws, out,
+                       S);
 }
 
 PW_EXPORT int pw_seg_sum(const float* rows, const int* seg, float* partial,
@@ -293,17 +227,8 @@ PW_EXPORT int pw_seg_sum_planned(const float* rows, unsigned char* pos,
 // an opt-in (48 KB in all)
 #define PW_MINMAX_SMEM_LIMIT (48 * 1024 - 64)
 
-// A key's distance from a min's identity (+inf's key) and from a max's
-// (-inf's key): zero is the identity, and a larger distance is a smaller
-// min or a larger max.  Keys beyond the identity (+NaN for a min, -NaN for
-// a max) count as the identity, as the plain version's fill makes them.
-__device__ __forceinline__ unsigned pw_min_dist(int k) {
-  return (unsigned)PW_KEY_POS_INF - (unsigned)min(k, PW_KEY_POS_INF);
-}
-
-__device__ __forceinline__ unsigned pw_max_dist(int k) {
-  return (unsigned)max(k, PW_KEY_NEG_INF) - (unsigned)PW_KEY_NEG_INF;
-}
+// Min and max are kept as key distances (pw_min_dist, pw_max_dist,
+// common.cuh): zero is the identity.
 
 // PW_MINMAX_CHUNK points of one scan per block: ws holds the scans' key
 // distances (B, 2, C, S) and a count per scan (B), zero between launches;
@@ -366,8 +291,8 @@ __global__ void __launch_bounds__(PW_MINMAX_THREADS)
   float* mx = maxs + (size_t)b * cs;
   for (int j = t; j < cs; j += PW_MINMAX_THREADS) {
     unsigned lo = atomicExch(&G[j], 0u), hi = atomicExch(&G[cs + j], 0u);
-    mn[j] = pw_key_f32((int)((unsigned)PW_KEY_POS_INF - lo));
-    mx[j] = pw_key_f32((int)(hi + (unsigned)PW_KEY_NEG_INF));
+    mn[j] = pw_min_of_dist(lo);
+    mx[j] = pw_max_of_dist(hi);
   }
   if (t == 0) *count = 0u;
 }

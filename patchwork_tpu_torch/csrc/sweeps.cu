@@ -33,32 +33,8 @@
 //
 // pw_moments2_sweep is the same one launch over the same plan, with the same
 // tail (pw_tile_finish, tile_sums.cuh): 20 bytes read per point, six rows.
-//
-// pw_reduce_tiles adds dense (tiles, R, Sp) partials in tile order for the
-// sums of level.cu, which still walk a tile per node (pw_tile_accumulate).
 #include "common.cuh"
 #include "tile_sums.cuh"
-
-__global__ void pw_tile_reduce_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ out, int B, int nt,
-                                      int R, int sp) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * R * sp) return;
-  int s = idx % sp;
-  int r = (idx / sp) % R;
-  int b = idx / (sp * R);
-  const float* p = partial + ((size_t)b * nt * R + r) * sp + s;
-  float acc = 0.f;
-  for (int j = 0; j < nt; ++j) acc += p[(size_t)j * R * sp];
-  out[idx] = acc;
-}
-
-void pw_reduce_tiles(const float* partial, float* out, int B, int nt, int R,
-                     int sp, cudaStream_t stream) {
-  int total = B * R * sp;
-  pw_tile_reduce_kernel<<<(total + 127) / 128, 128, 0, stream>>>(
-      partial, out, B, nt, R, sp);
-}
 
 // One tile of one scan per block.  partial (B, cap, R): the partial at
 // place e of scan b is at (b * cap + e) * R; done (B, sp) counts the

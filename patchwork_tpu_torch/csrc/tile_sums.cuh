@@ -1,6 +1,8 @@
-// Tile plan and compact tile sums, shared by the apply sweep and the
-// moments2 sweep (sweeps.cu), the one-launch fit loop (fitloop.cu) and the
-// segment sums of a segment binding (seg.cu).
+// Tile plan and compact tile sums, shared by the apply sweep, the moments2
+// sweep and the seed sweep (sweeps.cu, level.cu), the one-launch fit loop
+// and level (fitloop.cu) and the segment sums of a segment binding
+// (seg.cu); and the sum with no plan (pw_dense_sum_tile, at the end) of
+// binning's segment sum and the remap's per-parent sums.
 //
 // The order of every per-node sum is fixed (common.cuh): inside a tile the
 // points of node s are added in point order from +0.0, then the tiles'
@@ -397,4 +399,98 @@ __device__ __forceinline__ void pw_tile_finish(int tile, int K, PwPlan pl,
         O[r * sp + n] =
             pw_chain<L>(part, pl.node_off[n], pl.node_off[n + 1], R, r);
       });
+}
+
+// ---------------------------------------------------------------------------
+// A sum with no plan: ids new on every call (binning's segment sum, the
+// remap's per-parent sums R1 and R1b)
+// ---------------------------------------------------------------------------
+
+#define PW_DENSE_LOADS 16
+
+// Shared memory of pw_dense_sum_tile, declared by its kernel.
+template <int R>
+struct PwDenseSmem {
+  float vals[R * PW_TILE];
+  int iw[PW_PLAN_SMEM_INTS];
+  int sstart[PW_TILE + 1];
+  int sdest[PW_TILE];
+  int last;
+};
+
+// One tile of one scan per block (tile blockIdx.x of gridDim.x, scan
+// blockIdx.y of gridDim.y), after each thread computed its point's rows v
+// and id s in [0, S): the tile's runs found in shared memory, each present
+// node's R partials written at (tile, node) of partial (B, nt, S, R), which
+// is never filled elsewhere; ws holds the scans' tile bitmaps (B, S, W) and
+// a count per scan (B), zero between launches, and the last block of a scan
+// zeroes its part again.  ids: S shared ints where S <= PW_SLOT_TABLE_MAX
+// (the kernel's dynamic shared memory), else unused.  out (B, R, S).
+template <int R>
+__device__ __forceinline__ void pw_dense_sum_tile(PwDenseSmem<R>& sm,
+                                                  int* ids,
+                                                  const float (&v)[R], int s,
+                                                  float* partial,
+                                                  unsigned* ws,
+                                                  float* __restrict__ out,
+                                                  int S) {
+  int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x, nt = gridDim.x;
+  int W = (nt + 31) / 32;
+  unsigned* bits = ws + (size_t)b * S * W;
+  unsigned* count = ws + (size_t)gridDim.y * S * W + b;
+  float* part = partial + (size_t)b * nt * S * R;
+  PwSlots q = S <= PW_SLOT_TABLE_MAX ? pw_tile_slots_table(s, sm.iw, ids)
+                                     : pw_tile_slots(s, sm.iw);
+  if (t < q.K) sm.sstart[t] = q.st;
+  if (t == 0) sm.sstart[q.K] = PW_TILE;
+  if (q.rank == 0) {
+    sm.sdest[q.slot] = tile * S + s;
+    atomicOr(&bits[(size_t)s * W + (tile >> 5)], 1u << (tile & 31));
+  }
+  pw_tile_compact_sums<R>(sm.vals, sm.sstart, sm.sdest, v, q.pos, q.K, part);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) sm.last = atomicAdd(count, 1u) == (unsigned)(nt - 1);
+  __syncthreads();
+  if (!sm.last) return;
+  // every tile of the scan is in: a thread per (node, row) adds the node's
+  // partials in tile order, the marked tiles of four bitmap words at a
+  // time, PW_DENSE_LOADS loads in flight (few registers: they bound the
+  // blocks an SM holds in the pass above)
+  __threadfence();
+  float* O = out + (size_t)b * R * S;
+  for (int j = t; j < S * R; j += PW_TILE) {
+    int n = j / R, r = j - n * R;
+    const unsigned* row = bits + (size_t)n * W;
+    const float* p = part + (size_t)n * R + r;
+    float acc = 0.f;
+    for (int w0 = 0; w0 < W; w0 += 4) {
+      unsigned xs[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) xs[k] = w0 + k < W ? __ldcg(row + w0 + k) : 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        unsigned x = xs[k];
+        const float* pw = p + (size_t)(w0 + k) * 32 * S * R;
+        while (x) {
+          float y[PW_DENSE_LOADS];
+          unsigned z = x;
+#pragma unroll
+          for (int e = 0; e < PW_DENSE_LOADS; ++e) {
+            y[e] = z ? __ldcg(pw + (size_t)(__ffs(z) - 1) * S * R) : 0.f;
+            z &= z - 1;
+          }
+#pragma unroll
+          for (int e = 0; e < PW_DENSE_LOADS; ++e) {
+            if (x) acc += y[e];
+            x &= x - 1;
+          }
+        }
+      }
+    }
+    O[r * S + n] = acc;
+  }
+  __syncthreads();
+  for (int j = t; j < S * W; j += PW_TILE) bits[j] = 0u;
+  if (t == 0) *count = 0u;
 }

@@ -19,11 +19,12 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
 
-__all__ = ["load", "build_seconds", "CSRC"]
+__all__ = ["load", "build_seconds", "ptxas_info", "CSRC"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = CSRC.parent.parent / "build"
@@ -50,16 +51,15 @@ _SIGNATURES = {
     "pw_seg_plan": [_VP] * 8 + [_I] * 4 + [_VP],
     "pw_apply_sweep": [_VP] * 12 + [_I] * 6 + [_VP],
     "pw_moments2_sweep": [_VP] * 12 + [_I] * 5 + [_VP],
-    "pw_remap_r1": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
-    "pw_remap_r1b": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pw_remap_r1": [_VP] * 4 + [_I] * 5 + [_VP],
+    "pw_remap_r1b": [_VP] * 5 + [_I] * 4 + [_VP],
     "pw_remap_nodes": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "pw_remap_points": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_node_stats": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_early_outs": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _I, _I,
                       _VP],
-    "pw_deficient_round": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                           _VP],
-    "pw_seed_init": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "pw_deficient_round": [_VP] * 5 + [_I] * 4 + [_VP],
+    "pw_seed_init": [_VP] * 12 + [_I] * 6 + [_VP],
     "pw_plane_table": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pw_split_decision": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     "pw_finish_nodes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
@@ -67,7 +67,7 @@ _SIGNATURES = {
     "pw_seg_minmax": [_VP] * 6 + [_I] * 4 + [_VP],
     "pw_run_sum": [_VP] * 6 + [_I, _I, _VP],
     "pw_fit_level": [_VP] * 16 + [_I] * 8 + [_VP],
-    "pw_level_fit": [_VP] * 18 + [_I] * 9 + [_VP],
+    "pw_level_core": [_VP] * 26 + [_I] * 12 + [_F, _F, _VP],
     "pw_fit_level_blocks": [_I, _I, _I, _I, _I],
 }
 
@@ -141,3 +141,24 @@ def load() -> ctypes.CDLL:
 def build_seconds():
     """Seconds the first :func:`load` took (build included), or None."""
     return _build_seconds
+
+
+def ptxas_info(pattern: str = "") -> dict:
+    """What ptxas reported (``-Xptxas -v``) when the library was built, for
+    each kernel whose mangled name matches ``pattern``: registers a thread,
+    spill stores and loads and stack frame in bytes.  Empty where the
+    library came from an earlier build of the same sources."""
+    log = _BUILD / "nvcc.log"
+    if not log.exists():
+        return {}
+    out = {}
+    for m in re.finditer(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used "
+            r"(\d+) registers", log.read_text(), re.S):
+        if re.search(pattern, m.group(1)):
+            out[m.group(1)] = {"registers": int(m.group(5)),
+                               "spill_stores": int(m.group(3)),
+                               "spill_loads": int(m.group(4)),
+                               "stack": int(m.group(2))}
+    return out

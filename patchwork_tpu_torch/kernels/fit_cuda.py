@@ -13,7 +13,7 @@ family             replaces (patchwork_tpu/kernels/...)
                    (with ``sweep_plan``, built once per level for it)
 ``moments2_sweep`` fit_pallas.py ``fused_moments2`` / ``_moments2_kernel``
 ``level``          fit_pallas.py ``level_megakernel`` / ``_level_kernel``
-                   (its fit while-loop is ``level_fit``, one launch)
+                   (``level_core``: one co-operative launch a level)
 ``fit_level``      fit_pallas.py ``fit_level_megakernel`` / ``_mega_kernel``
 =================  ==================================================
 
@@ -60,8 +60,8 @@ __all__ = [
     "moments2_sweep", "remap_r1", "remap_r1b", "remap_nodes", "remap_points",
     "node_stats",
     "early_outs", "deficient_round", "seed_init", "plane_table",
-    "split_decision", "finish_nodes", "fit_sweep_loop", "level_fit",
-    "fit_pack", "megakernel_fits", "fit_level", "fit_level_blocks",
+    "split_decision", "finish_nodes", "fit_sweep_loop", "level_sequence",
+    "level_core", "fit_pack", "megakernel_fits", "fit_level", "fit_level_blocks",
     "fit_level_smem_bytes", "fit_level_fits",
 ]
 
@@ -795,18 +795,32 @@ def remap_r1_plain(pts, trash, sp, fast):
     return _tile_sums(torch.stack(rows, 1), pseg.to(torch.int64), sp)
 
 
+def _dense_scratch(pts, r, sp):
+    """What a sum with no plan (``pw_dense_sum_tile``) takes beside its
+    inputs: partials (B, tiles, sp, r), which it never fills, the zeroed
+    workspace it leaves zeroed, and the (B, r, sp) result."""
+    b, _, n = pts.shape
+    nt = n // TILE
+    ws = _workspace(pts.device, b * (sp * ((nt + 31) // 32) + 1))
+    partial = torch.empty((b, nt, sp, r), dtype=torch.float32,
+                          device=pts.device)
+    return partial, ws, pts.new_empty((b, r, sp))
+
+
 def remap_r1(pts: torch.Tensor, trash: int, sp: int, fast: bool) -> torch.Tensor:
     """R1 (fit_pallas.py:885-903): per-parent sums [cnt, sx, sy] of the live
-    points (parent id = pts row 3), plus raw [xx, yy] in fast mode."""
+    points (parent id = pts row 3), plus raw [xx, yy] in fast mode.
+
+    CUDA: one launch, the segment sum's route with no plan (parent ids are
+    new on every call): a block per (tile, scan) computes its points' rows,
+    finds its tile's runs in shared memory and writes each present parent's
+    partial; the scan's last block adds them in tile order."""
     if not _on_card(pts):
         return remap_r1_plain(pts, trash, sp, fast)
     _check_points(pts)
     b, _, n = pts.shape
-    r = 5 if fast else 3
-    partial = torch.empty((b, n // TILE, r, sp), dtype=torch.float32,
-                          device=pts.device)
-    out = torch.empty((b, r, sp), dtype=torch.float32, device=pts.device)
-    _launch("level", "pw_remap_r1", (pts, partial, out), b, n, sp, trash,
+    partial, ws, out = _dense_scratch(pts, 5 if fast else 3, sp)
+    _launch("level", "pw_remap_r1", (pts, partial, ws, out), b, n, sp, trash,
             int(fast))
     return out
 
@@ -824,17 +838,16 @@ def remap_r1b_plain(pts, cxy, trash):
 
 def remap_r1b(pts: torch.Tensor, cxy: torch.Tensor, trash: int) -> torch.Tensor:
     """R1 second pass, exact mode (fit_pallas.py:910-928): per-parent
-    centered [sum dx^2, sum dy^2] about the parent centroid cxy (B, 2, Sp)."""
+    centered [sum dx^2, sum dy^2] about the parent centroid cxy (B, 2, Sp).
+    CUDA: one launch, as :func:`remap_r1`."""
     if not _on_card(pts, cxy):
         return remap_r1b_plain(pts, cxy, trash)
     _check_points(pts)
     _f32(cxy)
     b, _, n = pts.shape
     sp = cxy.shape[2]
-    partial = torch.empty((b, n // TILE, 2, sp), dtype=torch.float32,
-                          device=pts.device)
-    out = torch.empty((b, 2, sp), dtype=torch.float32, device=pts.device)
-    _launch("level", "pw_remap_r1b", (pts, cxy, partial, out), b, n, sp,
+    partial, ws, out = _dense_scratch(pts, 2, sp)
+    _launch("level", "pw_remap_r1b", (pts, cxy, partial, ws, out), b, n, sp,
             trash)
     return out
 
@@ -857,9 +870,10 @@ def remap_nodes_plain(tables, median, axis, trash):
 
 def remap_nodes(tables: torch.Tensor, median: torch.Tensor, axis: torch.Tensor,
                 trash: int):
-    """R3 + R4 (fit_pallas.py:961-982), one thread per scan walking the
-    parents: compact child slots (2 * #earlier split parents; overflow
-    keeps its mask) and the children's inherited tau/zth rows.
+    """R3 + R4 (fit_pallas.py:961-982), one block per scan, the child slots
+    a prefix sum over the parents: compact child slots (2 * #earlier split
+    parents; overflow keeps its mask) and the children's inherited tau/zth
+    rows.
 
     Returns (pnode (B, 4, Sp) rows [median, ok, base_slot, axis_x] per
     parent, tz (B, 2, Sp) rows [tau, zth] per child slot)."""
@@ -902,6 +916,8 @@ def remap_points(pts: torch.Tensor, state: torch.Tensor, pnode: torch.Tensor,
 
 
 def node_stats_plain(pts, state, zth, trash, sp):
+    from .seg_cuda import seg_minmax_plain   # seg_cuda imports this module
+
     seg, act = _live(state, trash)
     live = act > 0.5
     ops = SegOps(seg, sp)
@@ -911,7 +927,7 @@ def node_stats_plain(pts, state, zth, trash, sp):
     else:
         seedm = live & (pts[:, 2] < torch.gather(zth, 1, seg))
         seed = ops.count(seedm).to(torch.float32)
-    mins, maxs = ops.bbox(pts[:, 0:3], live)
+    mins, maxs = seg_minmax_plain(pts[:, 0:3], seg, live, sp)
     return torch.cat([cnt[:, None], seed[:, None], mins, maxs], 1)
 
 
@@ -920,7 +936,9 @@ def node_stats(pts: torch.Tensor, state: torch.Tensor, zth: torch.Tensor | None,
     """Phase 1 (fit_pallas.py:1012-1054): per live node (B, 8, Sp) rows
     [cnt, seed_cnt, xmin, ymin, zmin, xmax, ymax, zmax]; seed_cnt counts
     z < zth[node] (zeros when ``zth`` is None).  Empty nodes: +inf mins,
-    -inf maxs.  CUDA: shared-memory integer atomics per block (counts, and
+    -inf maxs.  Min and max compare as order-preserving int keys
+    (``seg_minmax``'s order: -0.0 below +0.0, a NaN where its bits put
+    it).  CUDA: shared-memory integer atomics per block (counts, and
     min/max on order-preserving int keys), one global atomic per touched
     node per block."""
     if not _on_card(pts, state, zth):
@@ -984,6 +1002,8 @@ def early_outs(nstats: torch.Tensor, tables: torch.Tensor, zth: torch.Tensor,
 
 
 def deficient_round_plain(pts, state, flags, any_def, trash):
+    from .seg_cuda import seg_minmax_plain
+
     sp = flags.shape[2]
     z, idx = pts[:, 2], pts[:, 6]
     seg, act = _live(state, trash)
@@ -991,7 +1011,8 @@ def deficient_round_plain(pts, state, flags, any_def, trash):
     chosen = state[:, 2]
     cand = (act > 0.5) & def_pt & (chosen < 0.5)
     ops = SegOps(seg, sp)
-    m = ops.min(z, cand)
+    # the lowest z in the kernels' key order (a +NaN is never the lowest)
+    m = seg_minmax_plain(z[:, None], seg, cand, sp)[0][:, 0]
     m_pt = ops.gather(torch.where(torch.isfinite(m), m, _BIG))
     is_min = cand & (z == m_pt)
     mi = ops.min(idx, is_min)
@@ -1011,13 +1032,12 @@ def deficient_round(pts: torch.Tensor, state: torch.Tensor, flags: torch.Tensor,
     _check_points(pts, state)
     b, _, n = pts.shape
     sp = flags.shape[2]
-    zmin = torch.empty((b, sp), dtype=torch.int32, device=pts.device)
-    imin = torch.empty_like(zmin)
+    mins = torch.empty((b, 2, sp), dtype=torch.int32, device=pts.device)
     _launch("level", "pw_deficient_round",
-            (pts, state, flags, any_def, zmin, imin), b, n, sp, trash)
+            (pts, state, flags, any_def, mins), b, n, sp, trash)
 
 
-def seed_init_plain(pts, state, flags, trash, fast):
+def seed_init_plain(pts, state, flags, trash, fast, plan=None):
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
     seg, act = _live(state, trash)
     f = _gather_rows(flags, seg)
@@ -1043,11 +1063,15 @@ def seed_init_plain(pts, state, flags, trash, fast):
 
 
 def seed_init(pts: torch.Tensor, state: torch.Tensor, flags: torch.Tensor,
-              trash: int, fast: bool) -> torch.Tensor:
+              trash: int, fast: bool,
+              plan: SweepPlan | None = None) -> torch.Tensor:
     """Phase 4 fused with the fit loop's first moment sweep
     (fit_pallas.py:1371-1409): early-out labels and seeds into state rows
     0-1, then the same (B, R, Sp) sums as :func:`apply_sweep` with zero
-    distance and changed rows."""
+    distance and changed rows.  ``plan`` is :func:`sweep_plan` of ``state``,
+    the one the fit's sweeps that follow add over (built here if None).
+
+    CUDA: one launch over the plan, the apply sweep's scheme and tail."""
     if not _on_card(pts, state, flags):
         return seed_init_plain(pts, state, flags, trash, fast)
     _check_points(pts, state)
@@ -1055,11 +1079,14 @@ def seed_init(pts: torch.Tensor, state: torch.Tensor, flags: torch.Tensor,
     b, _, n = pts.shape
     sp = flags.shape[2]
     r = _sweep_rows(fast)
-    partial = torch.empty((b, n // TILE, r, sp), dtype=torch.float32,
-                          device=pts.device)
-    out = torch.empty((b, r, sp), dtype=torch.float32, device=pts.device)
-    _launch("level", "pw_seed_init", (pts, state, flags, partial, out), b, n,
-            sp, trash, int(fast))
+    if plan is None:
+        plan = sweep_plan(state, sp)
+    elif not plan.fits(pts, sp):
+        raise ValueError("the sweep plan does not fit these points")
+    out = pts.new_empty((b, r, sp))
+    _launch("level", "pw_seed_init",
+            (pts, state, flags, *plan.sweep_tensors(), plan.partial(r), out),
+            b, n, sp, plan.cap, trash, int(fast))
     return out
 
 
@@ -1209,8 +1236,8 @@ def finish_nodes(state: torch.Tensor, flags: torch.Tensor, sd: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# level_fit  (the fit while-loop of _level_kernel, fit_pallas.py:1357-1425):
-# as a loop of the sweeps above, and in one launch
+# the whole level (_level_kernel, fit_pallas.py:789-1462): as a sequence of
+# the phases above around the loop of sweeps, and in one launch
 # ---------------------------------------------------------------------------
 
 def fit_sweep_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast,
@@ -1248,6 +1275,49 @@ def fit_sweep_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast,
     return m1
 
 
+def level_fit_plain(pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
+    """The fit while-loop of a level from the sums ``m1`` of the seeded mask,
+    as the loop of plain sweeps."""
+    return fit_sweep_loop(plain, pts, state, m1, fit_row, tau_row, trash,
+                          max_iter, fast)
+
+
+def level_sequence(k, pts, state, tables, trash, max_iter, is_level0,
+                   min_seed, flat_area, flat_dz, flat_minpts, fast,
+                   remap=None, tz=None, nstats=None):
+    """One engine level (after R1, R1b and the medians of a remap level) as
+    its phases, each a call of ``k`` (this module, or :data:`plain`), the
+    fit as :func:`fit_sweep_loop` over one sweep plan that the seed sums
+    share.  Arguments and result as :func:`level_core`; with ``k = plain``
+    it is :func:`level_core`'s plain version.  On the card it is the route
+    where the one launch cannot hold the node table
+    (:func:`fit_level_fits` false): R3-R5, node stats, early-outs, the
+    deficient rounds, the seed sums, the fit, the split decision and the
+    finish, one or a few launches each."""
+    sp = tables.shape[2]
+    if remap is not None:
+        pnode, tz = k.remap_nodes(tables, remap[0], remap[1], trash)
+        k.remap_points(pts, state, pnode, trash)
+    elif tz is None:
+        tz = tables[:, 0:2]
+    tau_row, zth_row = tz[:, 0].contiguous(), tz[:, 1].contiguous()
+    if nstats is None:
+        nstats = k.node_stats(pts, state, zth_row, trash, sp)
+    flags, any_def = k.early_outs(nstats, tables, zth_row, is_level0,
+                                  flat_area, flat_dz, flat_minpts, min_seed)
+    for _ in range(min_seed):
+        k.deficient_round(pts, state, flags, any_def, trash)
+    plan = k.sweep_plan(state, sp)
+    m1 = k.seed_init(pts, state, flags, trash, fast, plan)
+    sf = fit_sweep_loop(k, pts, state, m1, flags[:, 2].contiguous(), tau_row,
+                        trash, max_iter, fast, plan)
+    sd = k.split_decision(sf, nstats, flags, tables)
+    k.finish_nodes(state, flags, sd, trash)
+    return torch.stack([sd[:, 0], sd[:, 1], sd[:, 2], nstats[:, 0],
+                        nstats[:, 1], tau_row, zth_row,
+                        torch.zeros_like(tau_row)], 1)
+
+
 def _fit_scratch(pts, sp, sweeps_out):
     """What a one-launch fit over (B, 8, N) points takes beside its inputs:
     the plan's buffers with their build scratch, the plane table, the
@@ -1265,75 +1335,119 @@ def _fit_scratch(pts, sp, sweeps_out):
     return plan, bitmap, tab, sync, sweeps_out
 
 
-def level_fit_plain(pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
-    return fit_sweep_loop(plain, pts, state, m1, fit_row, tau_row, trash,
-                          max_iter, fast)
+def _level_scratch(b, sp, min_seed, dev):
+    """What a level in one launch takes beside the fit's scratch: R3's
+    parent rows (B, 4, Sp), the early-out flags (B, 5, Sp) and the node
+    stats (B, 8, Sp); zeroed, the node stats' counts and key distances
+    (B, 8, Sp), the deficient flags (B,) and the rounds' minima
+    (min_seed, B, 2, Sp)."""
+    def floats(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def zeroed(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    return (floats(b, 4, sp), floats(b, 5, sp), floats(b, 8, sp),
+            zeroed(b, 8, sp), zeroed(b), zeroed(min_seed, b, 2, sp))
 
 
-def level_fit(pts: torch.Tensor, state: torch.Tensor, m1: torch.Tensor,
-              fit_row: torch.Tensor, tau_row: torch.Tensor, trash: int,
-              max_iter: int, fast: bool,
-              sweeps_out: torch.Tensor | None = None,
-              _blocks_per_scan: int = 0) -> torch.Tensor:
-    """The fit while-loop of one engine level (``_level_kernel``,
-    fit_pallas.py:1357-1425) in one launch.
+def level_core_plain(pts, state, tables, trash, max_iter, is_level0, min_seed,
+                     flat_area, flat_dz, flat_minpts, fast, remap=None,
+                     tz=None, nstats=None):
+    return level_sequence(plain, pts, state, tables, trash, max_iter,
+                          is_level0, min_seed, flat_area, flat_dz,
+                          flat_minpts, fast, remap, tz, nstats)
 
-    pts (B, 8, N) and state (B, 4, N) in the level layout (row 0 of
-    ``state``, the seeded mask, is updated in place; row 3 holds the node
-    ids); m1 (B, R, Sp) the sums of the seeded mask (:func:`seed_init`),
-    R = 12 in fast mode, else 6; fit_row (B, Sp) 0/1, the nodes that fit;
-    tau_row (B, Sp).  Returns the final sums (B, R, Sp), every column as the
-    loop of sweeps (:func:`fit_sweep_loop`, its plain version) leaves them:
-    the trash column and the padding columns too.  ``sweeps_out`` (B,) int32
-    on the card, if given, receives the apply sweeps each scan ran.
-    ``_blocks_per_scan`` is for tests and the timing tool only.
 
-    CUDA: ``fit_level``'s device code (csrc/fitloop.cu) reading the level
-    layout: one co-operative launch, the card's co-resident blocks / B
-    blocks per scan, a barrier per scan in device memory, the sweep plan
-    built in the kernel, each scan leaving on its own, no host read.  Bound
+def level_core(pts: torch.Tensor, state: torch.Tensor, tables: torch.Tensor,
+               trash: int, max_iter: int, is_level0: bool, min_seed: int,
+               flat_area: float, flat_dz: float, flat_minpts: int,
+               fast: bool, remap=None, tz: torch.Tensor | None = None,
+               nstats: torch.Tensor | None = None,
+               sweeps_out: torch.Tensor | None = None,
+               _blocks_per_scan: int = 0) -> torch.Tensor:
+    """One engine level after its remap sums (``_level_kernel``,
+    fit_pallas.py:789-1462) in one launch.
+
+    pts (B, 8, N) rows [x, y, z, seg, ground, done, index, 0] (seg is the
+    parent id on a remap level); state (B, 4, N) rows [ground, done,
+    chosen, seg] with rows 0-2 seeded from pts, updated in place (row 3 is
+    the node ids, or written here on a remap level); tables (B, 8, Sp).
+    ``remap``: (median, axis_x), each (B, Sp) per parent, on a remap level:
+    R3-R5 run first.  ``tz`` (B, 2, Sp): tau and zth per node, handed in;
+    else the tables' rows 0-1, or R4's on a remap level.  ``nstats``
+    (B, 8, Sp): the node stats, handed in with ``tz`` for percentile seeds
+    (node stats, the order statistic and R3-R5 then run ahead of this
+    call).  Returns the level's stats (B, 8, Sp) rows [split, gcnt, resid,
+    cnt, seed_cnt, tau, zth, 0].  ``sweeps_out`` (B,) int32 on the card, if
+    given, receives the sweeps each scan ran, sweep 0 (the seeds' sums)
+    included.  ``_blocks_per_scan`` is for tests and the timing tool only.
+
+    CUDA: ``fit_level``'s device code reading the level layout, grown into
+    the whole level (csrc/fitloop.cu ``pw_fit_level_kernel<FAST, true>``, the phases'
+    device code csrc/level.cuh): one co-operative launch, the card's
+    co-resident blocks / B blocks per scan, a barrier per scan in device
+    memory between the phases, R3-R5, the sweep plan, node stats,
+    early-outs, the deficient rounds (in scans with a deficient node), the
+    seeds and their sums as sweep 0, the fit loop, the split decision and
+    the finish, each scan leaving the fit on its own, no host read.  Bound
     by latency: up to 101 sweeps, each waiting for the sums of the one
-    before.  The first sums are ``seed_init``'s, handed in: no sweep 0 runs.
-    Where :func:`fit_level_fits` is false the launch is refused and raises;
-    the engine asks first and takes the loop of sweeps there.  A batch
-    above the card's co-resident blocks is cut into several launches.
+    before.  Where :func:`fit_level_fits` is false the launch is refused and
+    raises; the engine asks first and takes :func:`level_sequence` there.  A
+    batch above the card's co-resident blocks is cut into several launches.
     """
-    if not _on_card(pts, state, m1, fit_row, tau_row):
-        return level_fit_plain(pts, state, m1, fit_row, tau_row, trash,
-                               max_iter, fast)
+    median, axis = remap if remap is not None else (None, None)
+    if not _on_card(pts, state, tables, median, axis, tz, nstats):
+        return level_core_plain(pts, state, tables, trash, max_iter,
+                                is_level0, min_seed, flat_area, flat_dz,
+                                flat_minpts, fast, remap, tz, nstats)
     _check_points(pts, state)
-    _f32(m1, fit_row, tau_row)
+    _f32(tables, median, axis, tz, nstats)
     b, _, n = pts.shape
-    r = _sweep_rows(fast)
-    sp = fit_row.shape[1]
-    if m1.shape != (b, r, sp) or fit_row.shape != (b, sp) \
-            or tau_row.shape != (b, sp):
-        raise ValueError(f"level_fit: m1 must be ({b}, {r}, Sp), fit_row and "
-                         f"tau_row ({b}, Sp)")
+    sp = tables.shape[2]
+    if (tables.shape != (b, 8, sp)
+            or any(t is not None and t.shape != (b, sp) for t in (median, axis))
+            or (tz is not None and tz.shape != (b, 2, sp))
+            or (nstats is not None and nstats.shape != (b, 8, sp))):
+        raise ValueError(f"level_core: tables must be ({b}, 8, Sp), median "
+                         f"and axis ({b}, Sp), tz ({b}, 2, Sp), nstats "
+                         f"({b}, 8, Sp)")
+    if nstats is not None and (tz is None or remap is not None):
+        raise ValueError("nstats is handed in with tz, after the remap")
     if not 0 <= trash < sp:
         raise ValueError(f"trash={trash} outside the table width {sp}")
-    if _blocks_per_scan < 0:
-        raise ValueError("_blocks_per_scan must be >= 0")
+    if _blocks_per_scan < 0 or min_seed < 0:
+        raise ValueError("_blocks_per_scan and min_seed must be >= 0")
     dev = pts.device
     held = _fit_level_held(sp, fast, True)
     if b > held:
         if sweeps_out is None:
             sweeps_out = torch.empty(b, dtype=torch.int32, device=dev)
+
+        def cut(t, i):
+            return None if t is None else t[i:i + held]
+
         return torch.cat([
-            level_fit(pts[i:i + held], state[i:i + held], m1[i:i + held],
-                      fit_row[i:i + held], tau_row[i:i + held], trash,
-                      max_iter, fast, sweeps_out[i:i + held],
-                      _blocks_per_scan)
+            level_core(pts[i:i + held], state[i:i + held], tables[i:i + held],
+                       trash, max_iter, is_level0, min_seed, flat_area,
+                       flat_dz, flat_minpts, fast,
+                       None if remap is None else (cut(median, i),
+                                                   cut(axis, i)),
+                       cut(tz, i), cut(nstats, i), sweeps_out[i:i + held],
+                       _blocks_per_scan)
             for i in range(0, b, held)])
-    stats = torch.empty((b, r, sp), dtype=torch.float32, device=dev)
+    out = torch.empty((b, 8, sp), dtype=torch.float32, device=dev)
     plan, bitmap, tab, sync, sweeps_out = _fit_scratch(pts, sp, sweeps_out)
-    _launch("level", "pw_level_fit",
-            (pts, state, m1, fit_row, tau_row, stats, plan.pos, plan.start,
-             plan.tile_node, plan.tile_off, bitmap, plan.node_off, plan.dest,
-             plan.partial(r), tab, sync[0], sync[1], sweeps_out), b, n, sp,
-            plan.cap, int(trash), int(max_iter), int(fast),
-            int(_blocks_per_scan), fit_level_smem_bytes(sp, fast, True))
-    return stats
+    _launch("level", "pw_level_core",
+            (pts, state, tables, median, axis, tz, nstats, out, plan.pos,
+             plan.start, plan.tile_node, plan.tile_off, bitmap,
+             plan.node_off, plan.dest, plan.partial(_sweep_rows(fast)), tab,
+             *_level_scratch(b, sp, min_seed, dev), sync[0], sync[1],
+             sweeps_out), b, n, sp, plan.cap, int(trash),
+            int(max_iter), int(fast), int(_blocks_per_scan),
+            fit_level_smem_bytes(sp, fast, True), int(is_level0),
+            int(min_seed), int(flat_minpts), float(flat_area), float(flat_dz))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1372,7 +1486,7 @@ def fit_level_smem_bytes(sp: int, fast: bool, level: bool = False) -> int:
     the staged rows of a tile, the plane table, the sums of the block's
     nodes (sized for one block per scan), the runs of a tile and the plan's
     scratch (``PW_PLAN_SMEM_INTS``, csrc/tile_sums.cuh).  ``level``: of
-    :func:`level_fit`, whose table has a tau row, else of
+    :func:`level_core`, whose table has a tau row, else of
     :func:`fit_level`."""
     r = _sweep_rows(fast)
     floats = (r * TILE + (8 if level else 7) * sp + sp * r
@@ -1382,7 +1496,7 @@ def fit_level_smem_bytes(sp: int, fast: bool, level: bool = False) -> int:
 
 def fit_level_fits(sp: int, fast: bool, device, level: bool = False) -> bool:
     """The card's gate of the one-launch fit (:func:`fit_level`,
-    :func:`level_fit`): whether a block's shared memory at table width
+    :func:`level_core`): whether a block's shared memory at table width
     ``sp`` stays inside what the card grants a block (its opt-in limit,
     read from the card; an H100's 227 KB for a CPU tensor, so the plain
     path takes the routes the card takes).  Above it a fit runs as
@@ -1514,7 +1628,7 @@ _FIT_LEVEL_HELD: dict = {}
 
 
 def _fit_level_held(sp: int, fast: bool, level: bool) -> int:
-    """Blocks of a :func:`fit_level` (or, ``level``, :func:`level_fit`)
+    """Blocks of a :func:`fit_level` (or, ``level``, :func:`level_core`)
     launch the card holds at a time: the most scans one launch takes."""
     key = (torch.cuda.current_device(), sp, bool(fast), bool(level))
     if key not in _FIT_LEVEL_HELD:
@@ -1542,7 +1656,7 @@ def _fit_blocks(b: int, n: int, sp: int, fast: bool, level: bool) -> int:
 def fit_level_blocks(b: int, n: int, num_segs: int, fast: bool = False,
                      level: bool = False) -> int:
     """Blocks per scan of a :func:`fit_level` (or, ``level``,
-    :func:`level_fit`) launch on the current card: its co-resident blocks
+    :func:`level_core`) launch on the current card: its co-resident blocks
     divided by ``b``, at most one per tile."""
     return _fit_blocks(b, n, sp_width(num_segs), fast, level)
 
@@ -1558,6 +1672,6 @@ plain = types.SimpleNamespace(
     node_stats=node_stats_plain, early_outs=early_outs_plain,
     deficient_round=deficient_round_plain, seed_init=seed_init_plain,
     plane_table=plane_table_plain, split_decision=split_decision_plain,
-    finish_nodes=finish_nodes_plain, level_fit=level_fit_plain,
+    finish_nodes=finish_nodes_plain, level_core=level_core_plain,
     fit_level=fit_level_plain,
 )

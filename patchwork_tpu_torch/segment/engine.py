@@ -7,9 +7,10 @@ JAX package chooses them (engine.py:568-625):
 * the level path, ``_fused_levels`` (engine.py:207-315), with its
   ``pack``/``tables`` row contracts and its level loop.  Each level runs
   :func:`level`, the port of the TPU's ``level_megakernel``
-  (kernels/fit_pallas.py:1465-1558): a short sequence of CUDA kernels driven
-  from Python on a CUDA tensor, or the same sequence of their plain versions
-  (:func:`level_reference`) on a CPU tensor.  ``segment_impl="fused"`` (the
+  (kernels/fit_pallas.py:1465-1558): on a CUDA tensor one co-operative
+  launch (``fit_cuda.level_core``) after a remap level's per-parent sums
+  and medians, on a CPU tensor the same phases through their plain
+  versions (:func:`level_reference`).  ``segment_impl="fused"`` (the
   default) takes it while the path gate admits the scan;
 * the generic path, ``_level_body`` / ``_child_remap`` and the generic
   branch of ``filter_ground`` (engine.py:318-664), built on segment ops
@@ -22,12 +23,14 @@ at every N and are held against each other path by path; in exact mode it
 changes no bit.  *One launch or a loop of sweeps, inside a fit* is the
 card's own gate, ``fit_cuda.fit_level_fits``: the shared memory of the
 one-launch kernel at this table width against what the card grants a
-block.  Below it a level's fit loop is one co-operative launch
-(``fit_cuda.level_fit`` on the level path, ``fit_cuda.fit_level`` on the
-generic path, at every N); above it (a table some 2700 nodes wide on an
-H100, reached only through a large ``max_active_nodes_cfg``) the fit is
-``fit_cuda.fit_sweep_loop``, a loop of apply and moments2 sweeps that
-takes any width.  ``megakernel_fits`` has no say in that.
+block.  Below it a level is one co-operative launch on the level path
+(``fit_cuda.level_core``, the fit and the phases around it) and a level's
+fit loop one on the generic path (``fit_cuda.fit_level``, at every N);
+above it (a table some 2700 nodes wide on an H100, reached only through a
+large ``max_active_nodes_cfg``) a level path's phases run one by one
+(``fit_cuda.level_sequence``) and the fit is ``fit_cuda.fit_sweep_loop``,
+a loop of apply and moments2 sweeps that takes any width.
+``megakernel_fits`` has no say in that.
 
 The batch is a real dimension: every kernel's grid carries the scan.  Each
 scan converges on its own: the loops that JAX runs under ``vmap`` share one
@@ -80,6 +83,13 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
     split_thresh, min_split_size, depth_ok, parent_split, 0].  Returns
     state (B, 4, N) rows [ground, done, chosen, seg_out] and stats
     (B, 8, Sp) rows [split, gcnt, resid, cnt, seed_cnt, tau_out, zth_out, 0].
+
+    Ahead of the level, a remap level's per-parent sums (R1, R1b), split
+    axis and medians (R2); for percentile seeds also R3-R5, node stats and
+    the order statistic of the seed heights.  The rest is ``k.level_core``,
+    one launch on the card, where the card's gate admits the table width,
+    else ``fit_cuda.level_sequence`` (the phases one by one around the loop
+    of sweeps).
     """
     b, _, n = pts.shape
     sp = tables.shape[2]
@@ -87,13 +97,12 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
     state = torch.empty((b, 4, n), dtype=torch.float32, device=pts.device)
     state[:, 0:2] = pts[:, 4:6]
     state[:, 2] = 0.0
-
-    # ---- phase 0: split execution of the parent level (cpp:237-304) ----
     if not remap:
         state[:, 3] = pts[:, 3]
-        tau_row = tables[:, 0].contiguous()
-        zth_row = tables[:, 1].contiguous()
-    else:
+
+    # ---- phase 0: split execution of the parent level (cpp:237-304) ----
+    split = None
+    if remap:
         m1 = k.remap_r1(pts, trash, sp, fast)
         pcnt = m1[:, 0]
         safe_n = torch.clamp(pcnt, min=1.0)
@@ -113,13 +122,17 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
         k_med = torch.floor(pcnt * 0.5).to(torch.int32)
         median = k.seg_order_stat(vals, ps.to(torch.int32).contiguous(),
                                   (pseg < trash).contiguous(), k_med, sp)
-        pnode, tz = k.remap_nodes(tables, median, axis_x, trash)
-        tau_row, zth_row = tz[:, 0].contiguous(), tz[:, 1].contiguous()
-        k.remap_points(pts, state, pnode, trash)
+        split = (median, axis_x)
 
-    # ---- phase 1: per-node stats; 1b: percentile seeds (cpp:156-159) ----
-    nstats = k.node_stats(pts, state, zth_row if adaptive else None, trash, sp)
+    # ---- phase 1b: percentile seeds (cpp:156-159), ahead of the level ----
+    tz = nstats = None
     if not adaptive:
+        tau_row = tables[:, 0]
+        if split is not None:
+            pnode, tz = k.remap_nodes(tables, *split, trash)
+            k.remap_points(pts, state, pnode, trash)
+            tau_row, split = tz[:, 0], None
+        nstats = k.node_stats(pts, state, None, trash, sp)
         seg_i = state[:, 3].to(torch.int32).contiguous()
         k_seed = torch.floor(_f32(seed_percentile) * nstats[:, 0])
         zstat = k.seg_order_stat(pts[:, 2].contiguous(), seg_i,
@@ -128,39 +141,14 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
         zth_row = zstat + _f32(th_seeds)
         seeded = k.node_stats(pts, state, zth_row, trash, sp)
         nstats = torch.cat([nstats[:, 0:1], seeded[:, 1:2], nstats[:, 2:]], 1)
+        tz = torch.stack([tau_row, zth_row], 1)
 
-    # ---- phase 2: early-outs; 3: deficient "3 lowest-z" fallback --------
-    flags, any_def = k.early_outs(nstats, tables, zth_row, is_level0,
-                                  flat_area, flat_dz, flat_minpts, min_seed)
-    for _ in range(min_seed):
-        k.deficient_round(pts, state, flags, any_def, trash)
-
-    # ---- phase 4+5: seed init fused with the first sweep; fit loop ------
-    # ---- phase 6: final fit, residual, split; 7: finish non-split -------
-    m1 = k.seed_init(pts, state, flags, trash, fast)
-    sf = _fit_loop(k, pts, state, m1, flags[:, 2].contiguous(),
-                   tau_row.contiguous(), trash, max_iter, fast)
-    sd = k.split_decision(sf, nstats, flags, tables)
-    k.finish_nodes(state, flags, sd, trash)
-    stats = torch.stack([sd[:, 0], sd[:, 1], sd[:, 2], nstats[:, 0],
-                         nstats[:, 1], tau_row, zth_row,
-                         torch.zeros_like(tau_row)], 1)
-    return state, stats
-
-
-def _fit_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast):
-    """The fit while-loop of a level (fit_pallas.py:1357-1425) from the sums
-    ``m1`` of the seeded mask: one launch (``k.level_fit``) where the card's
-    gate admits the table width, else the loop of sweeps
-    (``fit_cuda.fit_sweep_loop`` on the sweeps of ``k``).  ``state`` row 0
-    (the mask) is updated in place; returns the final sums (B, R, Sp), the
-    same bits either way."""
-    if fit_cuda.fit_level_fits(fit_row.shape[1], fast, pts.device,
-                               level=True):
-        return k.level_fit(pts, state, m1, fit_row, tau_row, trash, max_iter,
-                           fast)
-    return fit_cuda.fit_sweep_loop(k, pts, state, m1, fit_row, tau_row, trash,
-                                   max_iter, fast)
+    # ---- R3-R5, stats, early-outs, deficient, seeds, fit, split, finish --
+    args = (pts, state, tables, trash, max_iter, is_level0, min_seed,
+            flat_area, flat_dz, flat_minpts, fast, split, tz, nstats)
+    if fit_cuda.fit_level_fits(sp, fast, pts.device, level=True):
+        return state, k.level_core(*args)
+    return state, fit_cuda.level_sequence(k, *args)
 
 
 def level(pts: torch.Tensor, tables: torch.Tensor, num_segs: int,

@@ -653,14 +653,17 @@ def test_fit_level_cuts_a_batch_the_card_cannot_hold(dev):
 
 
 # ---------------------------------------------------------------------------
-# the level path's fit loop in one launch
+# the level path's level, its fit loop included, in one launch
 # ---------------------------------------------------------------------------
 
-def _level_fit_inputs(dev, seed, b, n, s, order, fast, special=False):
-    """A level layout with planar nodes: ground near z = 0 plus clutter,
-    parked points on the trash id (some of them ground from a level
-    before), most nodes fitting, half the live points seeded; with its
-    seeded sums.  ``special``: NaN, +-inf and -0.0 coordinates too."""
+def _level_fit_inputs(dev, seed, b, n, s, order, fast, special=False,
+                      remap=False, max_iter=100):
+    """level_core's arguments on a level layout with planar nodes: ground
+    near z = 0 plus clutter, parked points on the trash id (some of them
+    ground from a level before), most nodes fitting, a tenth deficient
+    (their zth below every point); on a remap level the ids are parents,
+    about half of them split, with medians and axes.  ``special``: NaN,
+    +-inf and -0.0 coordinates too."""
     rng = np.random.default_rng(seed)
     sp = fit_cuda.sp_width(s)
     trash = s - 1
@@ -676,29 +679,53 @@ def _level_fit_inputs(dev, seed, b, n, s, order, fast, special=False):
     seg = rng.integers(0, s, (b, n))
     if order == "sorted":
         seg = np.sort(seg, axis=1)
+    parked = seg == trash
+    pts[:, 3] = seg
+    pts[:, 4] = parked & (rng.random((b, n)) < 0.5)
+    pts[:, 5] = parked
+    pts[:, 6] = np.arange(n)
+    tables = np.zeros((b, 8, sp), np.float32)
+    tables[:, 0, :s] = rng.uniform(0.1, 0.15, (b, s))
+    tables[:, 1, :s] = np.where(rng.random((b, s)) < 0.1, -10.0,
+                                rng.uniform(0.0, 0.05, (b, s)))
+    tables[:, 2, :trash] = 1.0
+    tables[:, 3] = 0.05
+    tables[:, 4] = 10.0
+    tables[:, 5] = 1.0
+    if remap:
+        tables[:, 6, :trash] = rng.random((b, trash)) < 0.5
     state = np.zeros((b, 4, n), np.float32)
-    state[:, 0] = rng.random((b, n)) < 0.5
-    state[:, 3] = seg
-    fit_row = np.zeros((b, sp), np.float32)
-    fit_row[:, :trash] = rng.random((b, trash)) < 0.8
-    tau_row = np.zeros((b, sp), np.float32)
-    tau_row[:, :s] = rng.uniform(0.1, 0.15, (b, s))
-    pts, state, fit_row, tau_row = [torch.from_numpy(a).to(dev) for a in
-                                    (pts, state, fit_row, tau_row)]
-    m1 = fit_cuda.plain.apply_sweep(pts, state.clone(),
-                                    pts.new_zeros(b, 8, sp), trash, fast)
-    return pts, state, m1, fit_row, tau_row, trash
+    state[:, 0:2] = pts[:, 4:6]
+    if not remap:
+        state[:, 3] = seg
+    pts, state, tables = [torch.from_numpy(a).to(dev)
+                          for a in (pts, state, tables)]
+    split = None
+    if remap:
+        split = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in
+                      (rng.normal(0, 5, (b, sp)), rng.random((b, sp)) < 0.5))
+    return (pts, state, tables, trash, max_iter, not remap, 3, 25.0, 0.05, 20,
+            fast, split, None, None)
 
 
-def _level_fit_both(args, max_iter, fast, blocks=0, sweeps=None):
-    """(sums, state) of the kernel and of its plain version."""
-    pts, state, m1, fit_row, tau_row, trash = args
+def _cut(args, lo, hi):
+    """level_core's arguments of scans lo..hi."""
+    pts, state, tables, *rest = args
+    split = rest[8]
+    rest[8] = None if split is None else tuple(t[lo:hi].contiguous()
+                                               for t in split)
+    return (pts[lo:hi].contiguous(), state[lo:hi].contiguous(),
+            tables[lo:hi].contiguous(), *rest)
+
+
+def _level_fit_both(args, blocks=0, sweeps=None, max_iter=None):
+    """(stats, state) of the one launch and of its plain version."""
+    pts, state, tables, trash, mi, *rest = args
+    mi = mi if max_iter is None else max_iter
     st_k, st_p = state.clone(), state.clone()
-    s_k = fit_cuda.level_fit(pts, st_k, m1, fit_row, tau_row, trash, max_iter,
-                             fast, sweeps_out=sweeps,
-                             _blocks_per_scan=blocks)
-    s_p = fit_cuda.plain.level_fit(pts, st_p, m1, fit_row, tau_row, trash,
-                                   max_iter, fast)
+    s_k = fit_cuda.level_core(pts, st_k, tables, trash, mi, *rest,
+                              sweeps_out=sweeps, _blocks_per_scan=blocks)
+    s_p = fit_cuda.plain.level_core(pts, st_p, tables, trash, mi, *rest)
     return (s_k, st_k), (s_p, st_p)
 
 
@@ -709,32 +736,35 @@ def _level_fit_both(args, max_iter, fast, blocks=0, sweeps=None):
 @pytest.mark.parametrize("b", [1, 3, 8])
 def test_level_fit_blocks_batches_and_exits(dev, b, blocks, max_iter, fast):
     # 66 tiles over 7 blocks: shares of 9 and 10 tiles, 81 nodes over 7; of
-    # 100 blocks 34 have no tile and 19 no node
-    args = _level_fit_inputs(dev, 3 * b + max_iter, b, 66 * 256, 81, "sorted",
-                             fast)
-    blocks = min(blocks, fit_cuda._fit_level_held(128, fast, True) // b)
-    fit_cuda.reset_launches()
-    sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
-    for _ in range(2):
-        (s_k, st_k), (s_p, st_p) = _level_fit_both(args, max_iter, fast,
-                                                   blocks, sweeps)
-        assert s_k.shape == (b, 12 if fast else 6, 128)
-        assert _equal(st_k, st_p) and _equal(s_k, s_p)    # every column
-    assert fit_cuda.LAUNCHES["level"] == 2
-    assert fit_cuda.LAUNCHES["apply_sweep"] == 0
-    assert fit_cuda.LAUNCHES["moments2_sweep"] == 0
-    k = sweeps.cpu().numpy()
-    assert np.all(k >= 1) and np.all(k <= max_iter + 1)
-    if max_iter <= 2:
-        assert np.all(k == max_iter + 1), "a max_iter exit adds the final fit"
-    if max_iter:
-        assert not torch.equal(st_k[:, 0], args[1][:, 0]), "no refit ran"
-    else:
-        assert torch.equal(st_k[:, 0], args[1][:, 0])
-    if b > 1:       # a scan's result does not depend on its batch
-        one = [a[1:2].contiguous() for a in args[:5]] + [args[5]]
-        (s_1, st_1), _ = _level_fit_both(one, max_iter, fast, blocks)
-        assert _equal(s_1[0], s_k[1]) and _equal(st_1[0], st_k[1])
+    # 100 blocks 34 have no tile and 19 no node; level 0 and a remap level
+    for remap in (False, True):
+        args = _level_fit_inputs(dev, 3 * b + max_iter, b, 66 * 256, 81,
+                                 "sorted", fast, remap=remap,
+                                 max_iter=max_iter)
+        g = min(blocks, fit_cuda._fit_level_held(128, fast, True) // b)
+        fit_cuda.reset_launches()
+        sweeps = torch.zeros(b, dtype=torch.int32, device=dev)
+        for _ in range(2):
+            (s_k, st_k), (s_p, st_p) = _level_fit_both(args, g, sweeps)
+            assert s_k.shape == (b, 8, 128)
+            assert _equal(st_k, st_p) and _equal(s_k, s_p)   # every column
+        assert fit_cuda.LAUNCHES["level"] == 2
+        assert fit_cuda.LAUNCHES["apply_sweep"] == 0
+        assert fit_cuda.LAUNCHES["moments2_sweep"] == 0
+        assert fit_cuda.LAUNCHES["sweep_plan"] == 0
+        # sweep 0 (the seeds' sums) included
+        k = sweeps.cpu().numpy()
+        assert np.all(k >= 2) and np.all(k <= max_iter + 2)
+        if max_iter <= 2:
+            assert np.all(k == max_iter + 2), "a max_iter exit adds a fit"
+        if max_iter:
+            (s_0, st_0), _ = _level_fit_both(args, g, max_iter=0)
+            assert not torch.equal(st_k[:, 0], st_0[:, 0]), "no refit ran"
+        if remap:
+            assert not torch.equal(st_k[:, 3], args[1][:, 3])
+        if b > 1:       # a scan's result does not depend on its batch
+            (s_1, st_1), _ = _level_fit_both(_cut(args, 1, 2), g)
+            assert _equal(s_1[0], s_k[1]) and _equal(st_1[0], st_k[1])
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
@@ -742,29 +772,54 @@ def test_level_fit_blocks_batches_and_exits(dev, b, blocks, max_iter, fast):
 @pytest.mark.parametrize("s", [81, 200, 300], ids=["sp128", "sp256", "sp384"])
 def test_level_fit_widths_orders_and_special_values(dev, s, order, fast):
     for special in (False, True):
-        args = _level_fit_inputs(dev, s, 2, 20 * 256, s, order, fast, special)
-        (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 5, fast)
-        assert _equal(st_k, st_p) and _equal(s_k, s_p)
-        if special:
-            assert torch.isnan(s_p).any() and not torch.isnan(s_p).all()
+        for remap in (False, True):
+            args = _level_fit_inputs(dev, s, 2, 20 * 256, s, order, fast,
+                                     special, remap, 5)
+            (s_k, st_k), (s_p, st_p) = _level_fit_both(args)
+            assert _equal(st_k, st_p) and _equal(s_k, s_p)
+            assert (st_p[:, 2] > 0.5).any(), "no deficient pick"
+            if special:     # the non-finite coordinates reach the result
+                fin = (torch.nan_to_num(args[0], 0.0, 1.0, -1.0),) + args[1:]
+                (s_f, _), _ = _level_fit_both(fin)
+                assert not _equal(s_k, s_f)
 
 
 def test_level_fit_one_tile_and_a_scan_that_converges_at_once(dev):
     args = _level_fit_inputs(dev, 1, 3, 256, 81, "shuffled", False)
-    (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 100, False)
-    assert _equal(st_k, st_p) and _equal(s_k, s_p)
-    # scan 1 restarts from its converged mask: one sweep, the same sums
-    pts, state, m1, fit_row, tau_row, trash = args
-    state = state.clone()
-    state[1, 0] = st_k[1, 0]
-    m1 = fit_cuda.plain.apply_sweep(pts, state.clone(),
-                                    pts.new_zeros(3, 8, 128), trash, False)
+    # scan 1 holds parked points only: nothing fits, nothing changes
+    for t in (args[0][1:2, 3], args[1][1:2, 3]):
+        t.fill_(80.0)
+    args[0][1, 5] = 1.0
+    args[1][1, 1] = 1.0
     sweeps = torch.zeros(3, dtype=torch.int32, device=dev)
-    (s_2, st_2), (s_p2, st_p2) = _level_fit_both(
-        (pts, state, m1, fit_row, tau_row, trash), 100, False, 0, sweeps)
-    assert _equal(st_2, st_p2) and _equal(s_2, s_p2)
-    assert int(sweeps[1]) == 1 and int(sweeps[0]) > 1
-    assert _equal(s_2[1, :4], s_k[1, :4])
+    (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 0, sweeps)
+    assert _equal(st_k, st_p) and _equal(s_k, s_p)
+    assert int(sweeps[1]) == 2 and int(sweeps[0]) > 2
+    assert torch.equal(st_k[1], args[1][1])
+    # a restart from the converged masks, on the loop of sweeps (the route
+    # that takes a mask): one sweep, the same sums
+    pts, state, tables, trash, _, is0, min_seed, area, dz, minpts = args[:10]
+    p, sp = fit_cuda.plain, tables.shape[2]
+    tau, zth = tables[:, 0].contiguous(), tables[:, 1].contiguous()
+    st = state.clone()
+    ns = p.node_stats(pts, st, zth, trash, sp)
+    flags, any_def = p.early_outs(ns, tables, zth, is0, area, dz, minpts,
+                                  min_seed)
+    for _ in range(min_seed):
+        p.deficient_round(pts, st, flags, any_def, trash)
+    m1 = p.seed_init(pts, st, flags, trash, False)
+    fit = flags[:, 2].contiguous()
+    sf = fit_cuda.fit_sweep_loop(fit_cuda, pts, st, m1, fit, tau, trash, 100,
+                                 False)
+    assert torch.equal(st[:, 0], st_k[:, 0])
+    m1c = p.apply_sweep(pts, st.clone(), pts.new_zeros(3, 8, sp), trash,
+                        False)
+    st2 = st.clone()
+    fit_cuda.reset_launches()
+    sf2 = fit_cuda.fit_sweep_loop(fit_cuda, pts, st2, m1c, fit, tau, trash,
+                                  100, False)
+    assert fit_cuda.LAUNCHES["apply_sweep"] == 1
+    assert _equal(st2, st) and _equal(sf2, sf)
 
 
 def test_level_fit_gate_refusals_and_cut_batches(dev):
@@ -773,31 +828,32 @@ def test_level_fit_gate_refusals_and_cut_batches(dev):
     assert not fit_cuda.fit_level_fits(4224, False, dev, level=True)
     assert fit_cuda.fit_level_blocks(8, 131072, 81, level=True) > 1
     # above the gate the launch is refused, and a refused launch is none
-    wide = _level_fit_inputs(dev, 2, 1, 2 * 256, 4200, "shuffled", False)
+    wide = _level_fit_inputs(dev, 2, 1, 2 * 256, 4200, "shuffled", False,
+                             max_iter=2)
     fit_cuda.reset_launches()
     with pytest.raises(RuntimeError):
-        _level_fit_both(wide, 2, False)
+        _level_fit_both(wide)
     assert fit_cuda.LAUNCHES["level"] == 0
-    # the loop of sweeps takes that width
-    pts, state, m1, fit_row, tau_row, trash = wide
+    # the phases one by one around the loop of sweeps take that width
+    pts, state, tables, *rest = wide
     st_k, st_p = state.clone(), state.clone()
-    a = fit_cuda.fit_sweep_loop(fit_cuda, pts, st_k, m1, fit_row, tau_row,
-                                trash, 2, False)
-    b = fit_cuda.fit_sweep_loop(fit_cuda.plain, pts, st_p, m1, fit_row,
-                                tau_row, trash, 2, False)
+    a = fit_cuda.level_sequence(fit_cuda, pts, st_k, tables, *rest)
+    b = fit_cuda.level_sequence(fit_cuda.plain, pts, st_p, tables, *rest)
     assert _equal(a, b) and _equal(st_k, st_p)
     assert 1 <= fit_cuda.LAUNCHES["apply_sweep"] <= 3
+    assert fit_cuda.LAUNCHES["sweep_plan"] == 1
     # a batch above the card's co-resident blocks is cut, not refused
     held = fit_cuda._fit_level_held(128, False, True)
-    args = _level_fit_inputs(dev, 9, held + 3, 2 * 256, 81, "sorted", False)
+    args = _level_fit_inputs(dev, 9, held + 3, 2 * 256, 81, "sorted", False,
+                             remap=True, max_iter=3)
     fit_cuda.reset_launches()
     sweeps = torch.zeros(held + 3, dtype=torch.int32, device=dev)
-    (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 3, False, 0, sweeps)
+    (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 0, sweeps)
     assert fit_cuda.LAUNCHES["level"] == 2
     assert _equal(st_k, st_p) and _equal(s_k, s_p)
-    assert int(sweeps.min()) >= 1
+    assert int(sweeps.min()) >= 2
     with pytest.raises(ValueError):
-        _level_fit_both(args[:2] + (args[2][:, :3],) + args[3:], 3, False)
+        _level_fit_both(args[:2] + (args[2][:, :3],) + args[3:])
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
@@ -808,17 +864,19 @@ def test_level_fit_at_the_widest_table_the_gate_admits(dev, fast):
     sp = max(w for w in range(128, 8192, 128)
              if fit_cuda.fit_level_fits(w, fast, dev, level=True))
     assert sp >= 2560
-    args = _level_fit_inputs(dev, sp, 2, 64 * 256, sp - 3, "shuffled", fast)
+    args = _level_fit_inputs(dev, sp, 2, 64 * 256, sp - 3, "shuffled", fast,
+                             remap=True, max_iter=3)
     for blocks in (1, 0):
-        (s_k, st_k), (s_p, st_p) = _level_fit_both(args, 3, fast, blocks)
+        (s_k, st_k), (s_p, st_p) = _level_fit_both(args, blocks)
         assert _equal(st_k, st_p) and _equal(s_k, s_p)
-    assert not torch.equal(st_k[:, 0], args[1][:, 0]), "no refit ran"
+    (_, st_0), _ = _level_fit_both(args, max_iter=0)
+    assert not torch.equal(st_k[:, 0], st_0[:, 0]), "no refit ran"
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_level_path_fit_is_one_launch_a_level(dev, mode):
-    # velodyne: no patch splits, one level: 8 launches of the level family
-    # around the fit and one for it, no sweep and no plan of its own
+    # velodyne: no patch splits, one level: one launch of the level family,
+    # no sweep and no plan of its own
     xyz = torch.from_numpy(np.stack([velodyne_like_cloud(16384, seed=i)
                                      for i in range(2)])).to(dev)
     valid = torch.ones(xyz.shape[:2], dtype=torch.bool, device=dev)
@@ -827,8 +885,8 @@ def test_level_path_fit_is_one_launch_a_level(dev, mode):
     assert fit_cuda.LAUNCHES["apply_sweep"] == 0
     assert fit_cuda.LAUNCHES["moments2_sweep"] == 0
     assert fit_cuda.LAUNCHES["sweep_plan"] == 0
-    # the percentile seeds count the nodes once more
-    assert fit_cuda.LAUNCHES["level"] == 9 + (mode == "percentile")
+    # percentile seeds count the nodes twice ahead of the launch
+    assert fit_cuda.LAUNCHES["level"] == 1 + 2 * (mode == "percentile")
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """The level path's fit loop in one launch, on the CPU: what can be proven
 without the card.
 
-* The one-launch kernel is ``fit_level``'s device code reading the level
-  layout.  That the two layouts describe the same fit is shown here with
-  the plain versions: ``fit_level_plain`` on level inputs mapped to the fit
-  layout equals the loop of plain sweeps bit for bit, in the mask and in the
-  sums of every live column (the trash column is where the layouts differ:
-  the level sums carry the factor ``act``, which the kernel keeps).
-* ``level_fit``'s plain version is the loop of sweeps the engine ran before
-  (a copy of it is kept below).
+* The level path's one launch (``level_core``) runs ``fit_level``'s device
+  code reading the level layout.  That the two layouts describe the same
+  fit is shown here with the plain versions: ``fit_level_plain`` on level
+  inputs mapped to the fit layout equals the loop of plain sweeps bit for
+  bit, in the mask and in the sums of every live column (the trash column
+  is where the layouts differ: the level sums carry the factor ``act``,
+  which the kernel keeps).
+* The level's plain fit (``level_fit_plain``, the loop of sweeps that
+  ``level_sequence`` runs) is the loop of sweeps the engine ran before (a
+  copy of it is kept below).
 * Both sides of the card's gate give the engine the same bits, and the path
   gate no longer decides how a fit runs.
 * The voxel filter's in-order run sums, and the patch-id flips of the
@@ -69,22 +71,22 @@ _CAPTURED: dict = {}
 
 def _level_inputs(fast: bool, sp: int):
     """(pts, state, m1, fit_row, tau_row, trash) of a fit loop the engine
-    ran on the small batch: level 0 for Sp 128, the first remap level for
-    Sp 256."""
+    ran on the small batch (the plain level's loop of sweeps): level 0 for
+    Sp 128, the first remap level for Sp 256."""
     if fast not in _CAPTURED:
         seen = []
-        orig = engine._fit_loop
+        orig = fit_cuda.fit_sweep_loop
 
         def capture(k, pts, state, m1, *rest):
-            seen.append((pts.clone(), state.clone(), m1.clone(), *rest))
+            seen.append((pts.clone(), state.clone(), m1.clone(), *rest[:5]))
             return orig(k, pts, state, m1, *rest)
 
-        engine._fit_loop = capture
+        fit_cuda.fit_sweep_loop = capture
         try:
             filter_ground_batched(*_batch(), PatchworkConfig(
                 fast_covariance=fast))
         finally:
-            engine._fit_loop = orig
+            fit_cuda.fit_sweep_loop = orig
         _CAPTURED[fast] = seen
     for pts, state, m1, fit_row, tau_row, trash, _, f in _CAPTURED[fast]:
         if fit_row.shape[1] == sp:
@@ -185,15 +187,16 @@ def test_level_fit_plain_is_the_loop_before(sp, fast, max_iter):
     st_a, st_b = state.clone(), state.clone()
     want, _, _ = _fit_loop_before(fit_cuda.plain, pts, st_a, m1, fit_row,
                                   tau_row, trash, max_iter, fast)
-    # the wrapper on CPU tensors, and the plain namespace the engine calls
-    got = fit_cuda.level_fit(pts, st_b, m1, fit_row, tau_row, trash,
-                             max_iter, fast)
+    # the level's plain fit, and the loop of sweeps over the plain
+    # namespace as the level's plain phases call it
+    got = fit_cuda.level_fit_plain(pts, st_b, m1, fit_row, tau_row, trash,
+                                   max_iter, fast)
     assert got.shape == (pts.shape[0], 12 if fast else 6, sp)
     np.testing.assert_array_equal(_bits(got), _bits(want))   # every column
     np.testing.assert_array_equal(_bits(st_b), _bits(st_a))
     st_c = state.clone()
-    again = fit_cuda.plain.level_fit(pts, st_c, m1, fit_row, tau_row, trash,
-                                     max_iter, fast)
+    again = fit_cuda.fit_sweep_loop(fit_cuda.plain, pts, st_c, m1, fit_row,
+                                    tau_row, trash, max_iter, fast, None)
     np.testing.assert_array_equal(_bits(again), _bits(want))
     np.testing.assert_array_equal(_bits(st_c), _bits(st_a))
 
@@ -201,12 +204,13 @@ def test_level_fit_plain_is_the_loop_before(sp, fast, max_iter):
 def test_a_scan_in_a_batch_equals_the_scan_alone():
     pts, state, m1, fit_row, tau_row, trash = _level_inputs(False, 256)
     st = state.clone()
-    sf = fit_cuda.level_fit(pts, st, m1, fit_row, tau_row, trash, 100, False)
+    sf = fit_cuda.level_fit_plain(pts, st, m1, fit_row, tau_row, trash, 100,
+                                  False)
     for i in range(pts.shape[0]):
         s1 = state[i:i + 1].clone()
-        one = fit_cuda.level_fit(pts[i:i + 1], s1, m1[i:i + 1],
-                                 fit_row[i:i + 1], tau_row[i:i + 1], trash,
-                                 100, False)
+        one = fit_cuda.level_fit_plain(pts[i:i + 1], s1, m1[i:i + 1],
+                                       fit_row[i:i + 1], tau_row[i:i + 1],
+                                       trash, 100, False)
         np.testing.assert_array_equal(_bits(one), _bits(sf[i:i + 1]))
         np.testing.assert_array_equal(_bits(s1), _bits(st[i:i + 1]))
 
@@ -225,15 +229,15 @@ def _count(monkeypatch, module, name, calls):
 def test_level_path_both_sides_of_the_card_gate(fast, monkeypatch):
     cfg = PatchworkConfig(fast_covariance=fast)
     calls = {}
-    _count(monkeypatch, fit_cuda, "level_fit", calls)
+    _count(monkeypatch, fit_cuda, "level_core", calls)
     _count(monkeypatch, fit_cuda, "apply_sweep", calls)
     below = filter_ground_batched(*_batch(), cfg).ground
-    assert calls.get("level_fit", 0) >= 2 and "apply_sweep" not in calls
+    assert calls.get("level_core", 0) >= 2 and "apply_sweep" not in calls
     calls.clear()
     monkeypatch.setattr(fit_cuda, "fit_level_fits",
                         lambda sp, fast, device, level=False: False)
     above = filter_ground_batched(*_batch(), cfg).ground
-    assert "level_fit" not in calls and calls["apply_sweep"] >= 2
+    assert "level_core" not in calls and calls["apply_sweep"] >= 2
     assert torch.equal(below, above)
 
 
@@ -243,13 +247,13 @@ def test_generic_fit_takes_one_launch_whatever_the_path_gate(monkeypatch):
     level = filter_ground_batched(*_batch(), PatchworkConfig()).ground
     monkeypatch.setattr(fit_cuda, "megakernel_fits", lambda n, sp: False)
     calls = {}
-    for name in ("fit_level", "apply_sweep", "level_fit"):
+    for name in ("fit_level", "apply_sweep", "level_core"):
         _count(monkeypatch, fit_cuda, name, calls)
     _count(monkeypatch, engine, "_level_body", calls)
     one = filter_ground_batched(*_batch(), PatchworkConfig()).ground
     assert calls["_level_body"] >= 2
     assert calls["fit_level"] == calls["_level_body"]
-    assert "apply_sweep" not in calls and "level_fit" not in calls
+    assert "apply_sweep" not in calls and "level_core" not in calls
     # above the card's gate the same fits run as loops of sweeps
     calls.clear()
     monkeypatch.setattr(fit_cuda, "fit_level_fits",

@@ -4,10 +4,12 @@
     python3 tools/torch_ab_summary.py DIR
 
 DIR holds the ``--json`` files of ``tools/torch_kernel_bench.py --sections
-scans,profiles``, one per process, named ``<turn>_<tree>.json`` (two trees
-run in turns inside one call on one card).  Prints, per tree and cell, the
+scans,profiles`` (and ``host``), one per process, named
+``<turn>_<tree>.json`` (two trees run in turns inside one call on one
+card).  Prints, per tree and cell, the
 median and the range of scans/s and of the profiled batch's device busy
-time, host span and idle share, with the number of readings.
+time, host span and idle share, and of the generic path's host times,
+with the number of readings.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ def main() -> int:
             for key in ("busy_ms", "span_ms", "idle"):
                 cells.setdefault((key, cell), {}).setdefault(
                     tree, []).append(row[key])
+        for key, v in data.get("host_generic", {}).items():
+            if isinstance(v, float):
+                cells.setdefault(("host", key), {}).setdefault(
+                    tree, []).append(v)
     print(card)
     for (metric, cell), trees in sorted(cells.items()):
         line = []

@@ -21,13 +21,17 @@ Sections (all by default; ``--sections gather,sweeps`` runs some):
 ``fits``      ``fit_level`` on the level-0 fit of B=8/3/1 x 153600 128-beam
               scans over a range of blocks per scan, beside the loop of
               sweeps;
-``level_fit`` the level path's fit loop in one launch on the inputs the main
-              path gives it (velodyne level 0, Sp 128, and a split-terrain
-              remap level, Sp 256; B=8 x 131072; exact and fast): held to
-              its plain version at max_iter 2 and run twice, its time by
-              events and on the device over a range of blocks per scan, the
-              sweeps each scan ran, beside the loop of sweeps on the same
-              input and ``seed_init`` (the launch that hands it its sums);
+``level_fit`` the level path's level on the inputs the main path gives it
+              (velodyne level 0, Sp 128, and a split-terrain remap level,
+              Sp 256; B=8 x 131072; exact and fast): ``engine.level`` by
+              events and its device time, all of it and the level family's
+              kernels; with ``level_core`` (one launch a level) also the
+              launch held to its plain version at max_iter 2 and run twice,
+              its device time over a range of blocks per scan, the sweeps
+              each scan ran (sweep 0, the seeds', included), beside its
+              phases one by one (``level_sequence``: the phase kernels and
+              the loop of sweeps); a tree from before it times the level
+              only (an A/B in turns);
 ``order_stat`` ``seg_order_stat`` on the split median (Sp 256) and the
               percentile seeds (Sp 128) of the main path: by events, host
               time per call, and the device time and count of each of its
@@ -52,7 +56,11 @@ Sections (all by default; ``--sections gather,sweeps`` runs some):
               velodyne at 153600 on the generic path and with the level
               path forced, at 262144, and split terrain at 131072 (level
               path) and 153600 (generic path) (not in the default list:
-              run the tool in two trees in turns to compare them).
+              run the tool in two trees in turns to compare them);
+``host``      the generic path's host side on split terrain at 153600:
+              host time per ``fit_level`` call and of its scratch, and the
+              top functions of five batches under cProfile (not in the
+              default list).
 
 Prints the card's name and power limit and what ptxas reported for these
 kernels first; exits non-zero on any mismatch.
@@ -103,7 +111,7 @@ def main() -> int:
                          r"[^\n]*\n\s*([^\n]*spill[^\n]*)\n"
                          r"ptxas info\s+: (Used [^\n]+)", log):
         if re.search(r"apply_kernel|pw_plan_|fit_level|pw_m2|gather|pw_os_|"
-                     r"pw_seg_sum|minmax",
+                     r"pw_seg_sum|minmax|pw_level|pw_r1|pw_seed",
                      m.group(1)):
             print(f"[ptxas] {m.group(1)}: {m.group(3)}; {m.group(2)}",
                   flush=True)
@@ -420,71 +428,78 @@ def main() -> int:
               f"same fit {loop_ms:.3f} ms", flush=True)
     out["fit_level_ms"] = fits
 
-    # ---- the level path's fit loop in one launch ----
+    # ---- the level path's level in one launch ----
     def level_fit_section():
+        """engine.level on the main path's inputs, its device time by
+        kernel family; in a tree with level_core (one launch a level) also
+        the launch held to its plain version, over blocks per scan, beside
+        its phases one by one.  A tree from before it (its phases as
+        launches of their own around a one-launch fit) times the level
+        only, for an A/B in turns."""
         rows = {}
+        one_launch = hasattr(fit_cuda, "level_core")
         for fast in (False, True):
             cfg = PatchworkConfig(fast_covariance=fast)
             mode = "fast" if fast else "exact"
             for scene, pick in (("velodyne", 1), ("split", 2)):
-                a, _ = capture(scenes[scene], cfg, fit_cuda, "level_fit", pick)
-                pts, state, m1, fit_row, tau_row, trash, max_iter, _ = a
-                sp = fit_row.shape[1]
+                (la, lkw) = capture(scenes[scene], cfg, engine, "level", pick)
+                sp = la[1].shape[2]
                 label = f"{scene} {mode} B={B} N={N} Sp={sp}"
+                row = {"level_events_ms": events_ms(
+                           lambda: engine.level(*la, **lkw), 10),
+                       "level_device_ms": device_us(
+                           lambda: engine.level(*la, **lkw), 10, ".") / 1e3,
+                       "level_family_device_ms": device_us(
+                           lambda: engine.level(*la, **lkw), 10,
+                           "pw_(?!seg_|os_|gather|minmax)") / 1e3}
+                line = (f"[level_fit] {label}: the level {row['level_events_ms']:.3f}"
+                        f" ms by events, {row['level_device_ms']:.4f} ms "
+                        f"device, of which the level family's kernels "
+                        f"{row['level_family_device_ms']:.4f} ms")
+                if one_launch:
+                    (a, _) = capture(scenes[scene], cfg, fit_cuda,
+                                     "level_core", pick)
 
-                def run(fn, mi, **kw):
-                    st = state.clone()
-                    return fn(pts, st, m1, fit_row, tau_row, trash, mi, fast,
-                              **kw), st
+                    def run(fn, mi=None, **kw):
+                        args = list(a)
+                        args[1] = args[1].clone()
+                        if mi is not None:
+                            args[4] = mi
+                        return fn(*args, **kw), args[1]
 
-                got, again = run(fit_cuda.level_fit, 2), run(fit_cuda.level_fit, 2)
-                want = run(fit_cuda.level_fit_plain, 2)
-                loop = run(lambda *x: fit_cuda.fit_sweep_loop(fit_cuda, *x),
-                           max_iter)
-                sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
-                full = run(fit_cuda.level_fit, max_iter, sweeps_out=sweeps)
-                torch.cuda.synchronize()
-                check(all(bits(x, y) for x, y in zip(got, want)),
-                      f"level_fit {label} max_iter 2 vs plain")
-                check(all(bits(x, y) for x, y in zip(got, again)),
-                      f"level_fit {label} twice")
-                check(all(bits(x, y) for x, y in zip(full, loop)),
-                      f"level_fit {label} vs the loop of sweeps")
-                auto = fit_cuda.fit_level_blocks(B, N, sp, fast, level=True)
-                row = {"sweeps_per_scan": sweeps.tolist(), "auto_blocks": auto,
-                       "blocks": {}}
-                for blocks in sorted({auto, 16, 32, 64}):
-                    if blocks > auto:
-                        continue
-                    row["blocks"][blocks] = {
-                        "events_ms": events_ms(lambda: run(
-                            fit_cuda.level_fit, max_iter,
-                            _blocks_per_scan=blocks), 5),
-                        "device_ms": device_us(lambda: run(
-                            fit_cuda.level_fit, max_iter,
+                    got, again = run(fit_cuda.level_core, 2), \
+                        run(fit_cuda.level_core, 2)
+                    want = run(fit_cuda.level_core_plain, 2)
+                    torch.cuda.synchronize()
+                    check(all(bits(x, y) for x, y in zip(got, want)),
+                          f"level_core {label} max_iter 2 vs plain")
+                    check(all(bits(x, y) for x, y in zip(got, again)),
+                          f"level_core {label} twice")
+                    sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
+                    run(fit_cuda.level_core, sweeps_out=sweeps)
+                    auto = fit_cuda.fit_level_blocks(B, N, sp, fast,
+                                                     level=True)
+                    row.update({"sweeps_per_scan": sweeps.tolist(),
+                                "auto_blocks": auto, "blocks": {}})
+                    for blocks in sorted({auto, 16, 32, 64}):
+                        if blocks > auto:
+                            continue
+                        row["blocks"][blocks] = device_us(lambda: run(
+                            fit_cuda.level_core,
                             _blocks_per_scan=blocks), 5,
-                            "pw_fit_level_kernel") / 1e3}
-                row["loop_of_sweeps_ms"] = events_ms(lambda: run(
-                    lambda *x: fit_cuda.fit_sweep_loop(fit_cuda, *x),
-                    max_iter), 3)
-                # seed_init hands the kernel its first sums: its own launch
-                (sa, _) = capture(scenes[scene], cfg, fit_cuda, "seed_init",
-                                  pick)
-                row["seed_init_device_us"] = device_us(
-                    lambda: fit_cuda.seed_init(sa[0], sa[1].clone(), *sa[2:]),
-                    20, "pw_seed|pw_tile_reduce")
+                            r"pw_fit_level_kernel<\w+, true>") / 1e3
+                    row["phases_one_by_one_ms"] = events_ms(lambda: run(
+                        lambda *x: fit_cuda.level_sequence(fit_cuda, *x)), 3)
+                    line += (f"; the launch {row['blocks'][auto]:.4f} ms "
+                             f"device with {auto} blocks a scan (" + ", ".join(
+                                 f"{g}: {v:.4f}" for g, v in
+                                 sorted(row["blocks"].items()))
+                             + f" ms by blocks a scan); its phases one by "
+                             f"one {row['phases_one_by_one_ms']:.3f} ms; "
+                             f"sweeps per scan {row['sweeps_per_scan']} "
+                             "(sweep 0 included)")
                 rows[label] = row
-                b_auto = row["blocks"][auto]
-                print(f"[level_fit] {label}: one launch "
-                      f"{b_auto['events_ms']:.3f} ms by events, "
-                      f"{b_auto['device_ms']:.3f} ms device with {auto} blocks "
-                      f"a scan; " + ", ".join(
-                          f"{g}: {v['device_ms']:.3f}" for g, v in
-                          sorted(row["blocks"].items()))
-                      + f" ms device by blocks a scan; loop of sweeps "
-                      f"{row['loop_of_sweeps_ms']:.3f} ms; seed_init "
-                      f"{row['seed_init_device_us']:.1f} us device; sweeps "
-                      f"per scan {row['sweeps_per_scan']}", flush=True)
+                print(line, flush=True)
         out["level_fit"] = rows
 
     if "level_fit" in sections:
@@ -707,6 +722,48 @@ def main() -> int:
         finally:
             engine.level = saved
 
+    def host_section(data):
+        """The generic path's host side on split terrain (B=8 x 153600):
+        host time per ``fit_level`` call (50 unsynchronised calls) and of
+        its scratch alone, and the functions that take the host's time in
+        five batches under cProfile (wall time a batch with the profiler
+        on)."""
+        import cProfile
+        import pstats
+
+        cfg = PatchworkConfig()
+        (p, g0, num_segs, max_iter), kw = capture(data, cfg, fit_cuda,
+                                                  "fit_level")
+        sp = fit_cuda.sp_width(num_segs)
+        host = {"fit_level_us": host_us(lambda: fit_cuda.fit_level(
+                    p, g0, num_segs, max_iter, **kw), 50),
+                "fit_scratch_us": host_us(lambda: fit_cuda._fit_scratch(
+                    p, sp, None), 2000)}
+        filter_ground_batched(*data, cfg)
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        for _ in range(5):
+            filter_ground_batched(*data, cfg)
+        torch.cuda.synchronize()
+        prof.disable()
+        host["batch_ms_profiled"] = (time.perf_counter() - t0) / 5 * 1e3
+        stats = pstats.Stats(prof).stats
+        top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
+        host["top_ms_a_batch"] = {
+            f"{os.path.basename(f)}:{line}({fn})": [tt / 5 * 1e3, ct / 5 * 1e3,
+                                                    nc / 5]
+            for (f, line, fn), (_, nc, tt, ct, _) in top}
+        print(f"[host] split B={B} N={N_GEN} exact, generic path: fit_level "
+              f"{host['fit_level_us']:.1f} us a call on the host, its scratch"
+              f" {host['fit_scratch_us']:.1f} us; a batch "
+              f"{host['batch_ms_profiled']:.2f} ms under cProfile", flush=True)
+        for name, (tt, ct, nc) in host["top_ms_a_batch"].items():
+            print(f"[host]   {tt:.3f} ms own, {ct:.3f} ms with callees, "
+                  f"{nc:.0f} calls a batch: {name}", flush=True)
+        out["host_generic"] = host
+
     velo = scenes["velodyne"]
     for fast in (False, True) if "profiles" in sections else ():
         cfg = PatchworkConfig(fast_covariance=fast)
@@ -755,6 +812,9 @@ def main() -> int:
         for label, rate in rates.items():
             print(f"[scans] {label} B={B}: {rate:.1f} scans/s", flush=True)
         out["scans_per_s"] = rates
+
+    if "host" in sections:
+        host_section(batch(split_terrain_cloud, B, N_GEN))
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
