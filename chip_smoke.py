@@ -146,7 +146,17 @@ Phases, one line each:
      path and the oracle or exact mode before it is timed): exit 0, one
      JSON line on stdout with "correct": true, the device name torch's, and
      the level and seg_sum families launched in every cell; its cells on
-     one line each.
+     one line each;
+ 12. spans: one engine call on each shape of BENCHMARK.json's cells (the
+     os128 cell's organized sweeps, B=8 x 262144, the generic path; the
+     live cell's HDL-64E sweep, B=1 x 131072, the level path), through the
+     node's own pad and step: under torch.cuda.set_sync_debug_mode("warn")
+     every synchronisation, by the span open at it, none outside an
+     "engine.read" span; the same call under "error" with only the read
+     spans exempt, the same masks; the read spans by parent and the waits
+     in each; the spans of a batch (os128) and of a frame (live) through
+     node.run, and the cost of a span with the profiler off (all of a
+     batch's or frame's under SPAN_COST_MAX_MS) and on.
 Then a JSON line per kernel family (launches summed over phases 4, 7, 8,
 9 and 10, phase 9's part (b) as its workers count them; seg_sum's entry
 carries BA's sums; seg_order_stat_rounds, #2's per-round entry, launches
@@ -2021,6 +2031,225 @@ def phase11(fails: Failures) -> None:
                 f"{torch.cuda.get_device_name(0)!r}")
 
 
+# phase 12: the cells of BENCHMARK.json whose shapes it runs, and the spans
+# of the node's per-batch (or per-frame) path that the cost is counted over
+SPAN_CELLS = ("os128.urban.offline", "kitti360.urban.live")
+SPAN_COST_MAX_MS = 0.05     # the spans of a batch (os128) or a frame (live)
+SPAN_COST_REPS = 3000       # batches of spans timed, profiler off (on: 1/10)
+SPAN_SEED = 2**31 + 12      # the pools' seed (os128's batches recurse)
+
+
+class _SyncLog:
+    """Under ``torch.cuda.set_sync_debug_mode("warn")``, each warning of a
+    synchronising CUDA operation with the span open at it and the
+    package's innermost frames."""
+
+    def __init__(self):
+        self.seen = []      # (span or None, "file:line < file:line")
+
+    def __call__(self, message, category, filename, lineno, file=None,
+                 line=None):
+        import traceback
+
+        from patchwork_tpu_torch.core import timing
+
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        frames = [f for f in stack if "patchwork_tpu_torch" in f.filename]
+        where = " < ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                           for f in reversed(frames[-3:] or stack[-4:]))
+        self.seen.append((timing.current(), where))
+
+
+def _read_exempt(span_fn):
+    """``timing.span`` with the sync debug mode off inside each read span
+    and back to "error" after it."""
+    import torch
+
+    from patchwork_tpu_torch.core import timing
+
+    class Exempt:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def __enter__(self):
+            torch.cuda.set_sync_debug_mode(0)
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            try:
+                return self.inner.__exit__(*exc)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+    def span(name):
+        inner = span_fn(name)
+        return Exempt(inner) if name == timing.READ else inner
+
+    return span
+
+
+def _spans_ms(spans: int, reps: int, profiler: bool) -> float:
+    """Median host ms of a batch's ``spans`` spans (a root and its
+    children, into a new StageTimes each time, the collector on) over
+    ``reps`` batches, with a profiler (CPU and CUDA activities) running or
+    not."""
+    import torch
+
+    from patchwork_tpu_torch.core import timing
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = []
+    with (torch.profiler.profile(activities=acts) if profiler
+          else contextlib.nullcontext()):
+        for _ in range(reps):
+            times = timing.StageTimes()
+            t0 = time.perf_counter()
+            with times.time("engine"):
+                for _ in range(spans - 1):
+                    with timing.span("engine.level"):
+                        pass
+            out.append(time.perf_counter() - t0)
+    out.sort()
+    return out[len(out) // 2] * 1e3
+
+
+def phase12(dev, card: str, fails: Failures) -> dict:
+    """Each cell's pool of scans (``SPAN_SEED``) through the engine a batch
+    (os128) or a frame (live) at a time, with the node's own pad and step:
+    every synchronisation a call makes under the sync debug mode "warn", by
+    the span open at it; each call again under "error" with only the read
+    spans exempt, the same masks; the read spans and the waits in them;
+    then the spans of a batch or frame through ``node.run`` and their cost
+    with the profiler off and on."""
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    from benchmark import traffic
+    from benchmark.manifest import Manifest
+    from patchwork_tpu_torch import PatchworkConfig
+    from patchwork_tpu_torch.core import timing
+    from patchwork_tpu_torch.node import NodeParams, PatchworkNode
+
+    bench = Manifest(ROOT)
+    out = {}
+    for name in SPAN_CELLS:
+        cell = bench.cell(name)
+        conf = bench.config(cell.config)
+        mix = bench.mix(cell.traffic)
+        b = mix["batch_size"]
+        node = PatchworkNode(NodeParams(**conf["node_params"]),
+                             PatchworkConfig(**conf["patchwork_config"]),
+                             capacity=conf["capacity"], batch_size=b,
+                             device=dev)
+        pool = traffic.make_pool(bench.scene(mix["scene"]), conf["sensor"],
+                                 mix, SPAN_SEED)
+        batches = [node._pad(pool[k:k + b], b)
+                   for k in range(0, len(pool), b)]
+        node._step(*batches[0])             # warm: the kernels loaded
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")      # its first call, out of
+        torch.cuda.set_sync_debug_mode(0)           # the window
+
+        log = _SyncLog()
+        times = timing.StageTimes()
+        refs = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = log
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for xyz, valid in batches:
+                    with times.time("engine"):
+                        refs.append(node._step(xyz, valid))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        reads = [s for s in times.spans if s.name == timing.READ]
+        waits = Counter(id(sp) for sp, _ in log.seen
+                        if sp is not None and sp.name == timing.READ)
+        outside = [(sp.name, where) for sp, where in log.seen
+                   if sp is not None and sp.name != timing.READ]
+        around = [where for sp, where in log.seen if sp is None]
+        silent = Counter(s.parent.name for s in reads if not waits[id(s)])
+        where_read = Counter(where for sp, where in log.seen
+                             if sp is not None and sp.name == timing.READ)
+        calls = len(batches)
+        levels = Counter(s.name for s in times.spans)["engine.level"]
+
+        real_span = timing.span
+        timing.span = _read_exempt(real_span)
+        torch.cuda.set_sync_debug_mode("error")
+        error, agains = None, []
+        try:
+            for xyz, valid in batches:
+                with timing.StageTimes().time("engine"):
+                    agains.append(node._step(xyz, valid))
+        except RuntimeError as e:
+            error = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            timing.span = real_span
+        same = error is None and all(
+            torch.equal(x, y) for ref, again in zip(refs, agains)
+            for x, y in zip(ref, again))
+
+        per_call = {"shape": [b, conf["capacity"]], "calls": calls,
+                    "levels": levels / calls,
+                    "syncs": len(log.seen) / calls,
+                    "reads": len(reads) / calls,
+                    "syncs_in_reads": sum(waits.values()) / calls,
+                    "outside_reads": outside,
+                    "outside_the_call": around,
+                    "reads_by_parent": {
+                        k: v / calls for k, v in
+                        Counter(s.parent.name for s in reads).items()},
+                    "reads_without_a_sync": dict(silent),
+                    "syncs_by_place": dict(where_read),
+                    "error_mode": error or "no synchronisation outside a "
+                    "read", "same_masks": same}
+        print(f"[12 spans] {name}: per call {json.dumps(per_call)}",
+              flush=True)
+        fails.check(not outside, f"spans {name}: {len(outside)} "
+                    f"synchronisation(s) outside a read span: {outside}")
+        fails.check(not around, f"spans {name}: {len(around)} "
+                    f"synchronisation(s) around the engine call: {around}")
+        fails.check(error is None, f"spans {name}: under \"error\" with "
+                    f"the reads exempt: {error}")
+        fails.check(same, f"spans {name}: the masks of the exempt run "
+                    "differ")
+
+        # the spans of a batch (B=8) or a frame (B=1, pipelined)
+        node.times = timing.StageTimes()
+        node.run(pool, pipeline_depth=mix.get("pipeline_depth", 2))
+        per_call["spans"] = len(node.times.spans) / calls
+        per_call["spans_by_name"] = {
+            k: v / calls for k, v in
+            Counter(s.name for s in node.times.spans).items()}
+        out[name] = per_call
+
+    for name, per_call in out.items():
+        unit = "batch" if bench.mix(bench.cell(name).traffic)[
+            "batch_size"] > 1 else "frame"
+        n = round(per_call["spans"])
+        off = per_call["cost_ms_profiler_off"] = _spans_ms(
+            n, SPAN_COST_REPS, False)
+        on = per_call["cost_ms_profiler_on"] = _spans_ms(
+            n, SPAN_COST_REPS // 10, True)
+        print(f"[12 spans] {name}: {per_call['spans']:.1f} spans a {unit} "
+              f"({json.dumps(per_call['spans_by_name'])}); {n} spans take "
+              f"{off:.4f} ms with the profiler off, {on:.4f} ms on "
+              f"(median of {SPAN_COST_REPS} and {SPAN_COST_REPS // 10}); "
+              f"{card}", flush=True)
+        fails.check(off < SPAN_COST_MAX_MS, f"spans {name}: {off} ms a "
+                    f"{unit} with the profiler off")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2661,6 +2890,10 @@ def main() -> int:
     # ---- 11. the port's benchmark, as a process ----
     stamp("11 bench")
     phase11(fails)
+
+    # ---- 12. spans and host reads on the benchmark's cells ----
+    stamp("12 spans")
+    phase12(dev, card, fails)
 
     if fails.items:
         print(f"chip_smoke: {len(fails.items)} check(s) failed",

@@ -48,6 +48,7 @@ import types
 
 import torch
 
+from ..core import timing
 from ..core.device import true_div
 from ..segment.segops import (SegOps, f32_key, flatten_batch, key_f32,
                               sort_by_segment)
@@ -240,7 +241,8 @@ def seg_order_stat_rounds_plain(vals, seg, valid, k, num_segs, reduce):
     to every round's (M, 128) int32 histogram before its select; 0.0 for
     the other segments."""
     b, n = vals.shape
-    sel = (k.reshape(-1) >= 0).nonzero()[:, 0]
+    with timing.span(timing.READ):     # the selection's size
+        sel = (k.reshape(-1) >= 0).nonzero()[:, 0]
     m = sel.numel()
     out = torch.zeros(b * num_segs, dtype=torch.float32, device=vals.device)
     if m == 0:
@@ -344,7 +346,8 @@ def _seg_order_stat_rounds(vals, seg, valid, k, num_segs, reduce):
     """The per-round entry on the card (see :func:`seg_order_stat`)."""
     b, n = vals.shape
     dev = vals.device
-    sel = (k.reshape(-1) >= 0).nonzero()[:, 0].to(torch.int32)
+    with timing.span(timing.READ):     # the selection's size
+        sel = (k.reshape(-1) >= 0).nonzero()[:, 0].to(torch.int32)
     m = sel.numel()
     out = torch.zeros((b, num_segs), dtype=torch.float32, device=dev)
     if m == 0:
@@ -1266,7 +1269,7 @@ def fit_sweep_loop(k, pts, state, m1, fit_row, tau_row, trash, max_iter, fast,
     changed = True
     for _ in range(max_iter):
         m1 = k.apply_sweep(pts, state, make_tab(m1, True), trash, fast, plan)
-        changed = bool((m1[:, 5] > 0.0).any())
+        changed = timing.read((m1[:, 5] > 0.0).any())
         if not changed:
             break
     if changed:
@@ -1551,7 +1554,7 @@ def fit_level_plain(p, g0, num_segs, max_iter, fast):
     for _ in range(max_iter):
         g, m1 = _fit_sweep_plain(p, g, _fit_table_plain(p, g, m1, sp, fast,
                                                         True), sp, fast)
-        changed = bool((m1[:, 5] > 0.0).any())
+        changed = timing.read((m1[:, 5] > 0.0).any())
         if not changed:
             break
     if changed:

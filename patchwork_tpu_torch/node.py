@@ -23,9 +23,9 @@ from typing import Callable, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from .core import timing
 from .core.config import PatchworkConfig
 from .core.device import resolve_device
-from .core.timing import StageTimes
 from .segment.engine import filter_ground_batched
 
 __all__ = ["NodeParams", "FrameResult", "PatchworkNode", "run_stream"]
@@ -57,7 +57,12 @@ class NodeParams:
 
 @dataclasses.dataclass
 class FrameResult:
-    """Per-frame output bundle (the node's two clouds + marker counts)."""
+    """Per-frame output bundle (the node's two clouds + marker counts).
+
+    ``latency_s``: from the frame's arrival at the node (``run`` pulling it
+    from its source, or the call of ``process``) to its own result built
+    (its masks and counts on the host), in either mode; never a share of a
+    batch."""
 
     index: int
     ground_mask: np.ndarray     # over input rows
@@ -80,9 +85,19 @@ class PatchworkNode:
 
     ``batch_size`` > 1 groups frames into one batched engine call (the
     throughput mode for offline sequences); 1 minimizes per-frame latency.
-    Stage times: "h2d" (pad and copy in), "engine" (the engine call, which
-    synchronises on its convergence flags), "d2h" (masks and counts out,
-    waiting for the last kernels), and "frame" per result.
+
+    ``times`` (``core.timing.StageTimes``) holds the node's spans, each
+    with the indices of the frames it served: "h2d" (pad, "h2d.pad", and
+    copy in, "h2d.copy"), "engine" (the engine call, with the engine's own
+    spans under it: "engine.binning", "engine.level" and its phases, an
+    "engine.read" for each wait on the card, and "engine.counts", the
+    obstacle mask and the counts), "hold" (single-scan mode: a
+    frame's engine call returned until its drain starts, while the next
+    frames come in), "d2h" (masks and counts out, waiting for the last
+    kernels) and "frame" (a frame's arrival until its result is built; in
+    single-scan mode h2d + engine + hold + d2h of that frame, exactly).
+    A caller may replace ``times`` between calls or during one: spans go
+    to the object in place when they open.
     """
 
     def __init__(
@@ -98,49 +113,64 @@ class PatchworkNode:
         self.capacity = capacity
         self.batch_size = max(batch_size, 1)
         self.device = resolve_device(device)
-        self.times = StageTimes()
+        self.times = timing.StageTimes()
 
     def _pad(self, scans: List[np.ndarray], b: int):
         """(b, capacity, 3) and (b, capacity) tensors on the device; rows
         beyond the capacity are dropped, as in the JAX node, and slots
         beyond the scans stay empty."""
-        xyz = np.zeros((b, self.capacity, 3), np.float32)
-        valid = np.zeros((b, self.capacity), bool)
-        for slot, pts in enumerate(scans):
-            n = min(len(pts), self.capacity)
-            xyz[slot, :n] = np.asarray(pts, np.float32)[:n, :3]
-            valid[slot, :n] = True
-        return (torch.from_numpy(xyz).to(self.device),
-                torch.from_numpy(valid).to(self.device))
+        with timing.span("h2d.pad"):
+            xyz = np.zeros((b, self.capacity, 3), np.float32)
+            valid = np.zeros((b, self.capacity), bool)
+            for slot, pts in enumerate(scans):
+                n = min(len(pts), self.capacity)
+                xyz[slot, :n] = np.asarray(pts, np.float32)[:n, :3]
+                valid[slot, :n] = True
+        with timing.span("h2d.copy"):
+            return (torch.from_numpy(xyz).to(self.device),
+                    torch.from_numpy(valid).to(self.device))
 
     def _step(self, xyz, valid):
         res = filter_ground_batched(xyz, valid, self.config)
-        obstacles = res.valid & ~res.ground
-        return res.ground, res.valid, res.ground.sum(-1), obstacles.sum(-1)
+        with timing.span("engine.counts"):
+            obstacles = res.valid & ~res.ground
+            return (res.ground, res.valid, res.ground.sum(-1),
+                    obstacles.sum(-1))
 
-    def _results(self, items, out, t0, per_frame: bool):
-        """FrameResults of the (index, pts) ``items`` from one step's
-        device outputs."""
-        with self.times.time("d2h"):
+    def _results(self, items, out, start: float):
+        """FrameResults of the (index, pts, frame span) ``items`` from one
+        step's device outputs: the "d2h" span from ``start``, and each
+        frame's span closed where the results are on the host."""
+        with self.times.time("d2h", tuple(it[0] for it in items),
+                             start) as d2h:
             g, v, ng, no = (t.cpu().numpy() for t in out)
-        dt = time.perf_counter() - t0
-        return [FrameResult(index=idx, ground_mask=g[slot],
-                            valid_mask=v[slot], num_ground=int(ng[slot]),
-                            num_obstacles=int(no[slot]),
-                            latency_s=dt if per_frame else dt / len(items))
-                for slot, (idx, _) in enumerate(items)]
+        results = []
+        for slot, (idx, _, frame) in enumerate(items):
+            frame.close(d2h.end)
+            results.append(FrameResult(
+                index=idx, ground_mask=g[slot], valid_mask=v[slot],
+                num_ground=int(ng[slot]), num_obstacles=int(no[slot]),
+                latency_s=frame.seconds))
+        return results
+
+    def _enqueue(self, frames, scans, b: int, arrival: float | None = None):
+        """Pad ``scans`` to ``b`` slots, copy them in and run the engine:
+        the "h2d" span from ``arrival`` (now if None), then "engine";
+        returns the device outputs and the engine span."""
+        with self.times.time("h2d", frames, arrival) as h2d:
+            xyz, valid = self._pad(scans, b)
+        with self.times.time("engine", frames, h2d.end) as engine:
+            out = self._step(xyz, valid)
+        return out, engine
 
     def process(self, pts: np.ndarray, index: int = 0) -> Optional[FrameResult]:
         """Process one scan synchronously; None if below min_points
         (reference drops short clouds, cpp:74-78 via empty-check)."""
         if len(pts) < self.params.min_points:
             return None
-        t0 = time.perf_counter()
-        with self.times.time("h2d"):
-            xyz, valid = self._pad([pts], 1)
-        with self.times.time("engine"):
-            out = self._step(xyz, valid)
-        return self._results([(index, pts)], out, t0, True)[0]
+        frame = self.times.open("frame", (index,))
+        out, engine = self._enqueue((index,), [pts], 1, frame.start)
+        return self._results([(index, pts, frame)], out, engine.end)[0]
 
     def run(
         self,
@@ -153,34 +183,35 @@ class PatchworkNode:
 
         Single-scan mode keeps up to ``pipeline_depth`` scans enqueued
         before pulling the oldest one's results to the host (the reference
-        processes strictly sequentially per DDS message).
+        processes strictly sequentially per DDS message); a frame's "hold"
+        span covers that wait.  A frame arrives when it is pulled from
+        ``scans``.
         """
         if self.batch_size > 1:
             return self._run_batched(scans, sinks or [], limit)
         sinks = sinks or []
         results: List[FrameResult] = []
-        inflight: List[tuple] = []  # (index, pts, device outputs, t0)
+        inflight: List[tuple] = []  # (index, pts, frame, outputs, hold)
 
         def drain_one():
-            idx, pts, out, t0 = inflight.pop(0)
-            res = self._results([(idx, pts)], out, t0, True)[0]
-            self.times.add("frame", res.latency_s)
+            idx, pts, frame, out, hold = inflight.pop(0)
+            hold.close()
+            res = self._results([(idx, pts, frame)], out, hold.end)[0]
             results.append(res)
             for sink in sinks:
                 sink(pts, res)
 
         for i, pts in enumerate(scans):
+            arrival = time.perf_counter()
             if limit is not None and i >= limit:
                 break
             if len(pts) < self.params.min_points:
                 continue
             try:
-                t0 = time.perf_counter()
-                with self.times.time("h2d"):
-                    xyz, valid = self._pad([pts], 1)
-                with self.times.time("engine"):
-                    out = self._step(xyz, valid)
-                inflight.append((i, pts, out, t0))
+                frame = self.times.open("frame", (i,), arrival)
+                out, engine = self._enqueue((i,), [pts], 1, arrival)
+                hold = self.times.open("hold", (i,), engine.end)
+                inflight.append((i, pts, frame, out, hold))
                 while len(inflight) >= pipeline_depth:
                     drain_one()
             except Exception as e:  # per-frame resilience (reference
@@ -194,30 +225,28 @@ class PatchworkNode:
         """Group frames into batches of ``batch_size`` (a short final batch
         is padded with empty frames that are dropped from the results)."""
         results: List[FrameResult] = []
-        buf: List[tuple] = []  # (index, pts)
+        buf: List[tuple] = []  # (index, pts, frame)
 
         def flush():
             if not buf:
                 return
-            t0 = time.perf_counter()
-            with self.times.time("h2d"):
-                xyz, valid = self._pad([pts for _, pts in buf],
+            frames = tuple(idx for idx, _, _ in buf)
+            out, engine = self._enqueue(frames, [pts for _, pts, _ in buf],
                                        self.batch_size)
-            with self.times.time("engine"):
-                out = self._step(xyz, valid)
-            for res, (_, pts) in zip(self._results(buf, out, t0, False), buf):
-                self.times.add("frame", res.latency_s)
+            for res, (_, pts, _) in zip(self._results(buf, out, engine.end),
+                                        buf):
                 results.append(res)
                 for sink in sinks:
                     sink(pts, res)
             buf.clear()
 
         for i, pts in enumerate(scans):
+            arrival = time.perf_counter()
             if limit is not None and i >= limit:
                 break
             if len(pts) < self.params.min_points:
                 continue
-            buf.append((i, pts))
+            buf.append((i, pts, self.times.open("frame", (i,), arrival)))
             if len(buf) == self.batch_size:
                 flush()
         flush()

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from ..core import timing
+
 __all__ = [
     "finite_mask",
     "rotate_2d",
@@ -69,7 +71,9 @@ def polar_angle(xyz: torch.Tensor) -> torch.Tensor:
     """atan2(y, x) wrapped to [0, 2*pi) with the reference's strictly
     negative test (cuda_wrapper.cu:67-74)."""
     a = torch.atan2(xyz[..., 1], xyz[..., 0])
-    two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=a.device)
+    with timing.span(timing.READ):     # a copy in: waits for the card
+        two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32,
+                              device=a.device)
     return torch.where(a < 0, a + two_pi, a)
 
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import timing
 from ..core.config import PatchworkConfig
 from ..core.device import true_div
 from ..kernels import fit_cuda
@@ -74,8 +75,11 @@ def bin_points(xyz: torch.Tensor, valid: torch.Tensor, cfg: PatchworkConfig):
     ang = polar_angle(xyz)
     in_zone = fin & (d <= cfg.filtering_radius)
 
-    r_edges = torch.from_numpy(ring_edges(cfg)).to(xyz.device)
-    s_edges = torch.from_numpy(sector_edges(cfg)).to(xyz.device)
+    # a copy in from pageable memory waits for the card
+    with timing.span(timing.READ):
+        r_edges = torch.from_numpy(ring_edges(cfg)).to(xyz.device)
+    with timing.span(timing.READ):
+        s_edges = torch.from_numpy(sector_edges(cfg)).to(xyz.device)
     ring = (d[..., None] >= r_edges[1:-1]).sum(-1, dtype=torch.int32)
     in_ring = (d >= r_edges[0]) & (d < r_edges[-1])
     sector = (ang[..., None] >= s_edges[1:-1]).sum(-1, dtype=torch.int32)

@@ -40,6 +40,11 @@ bit) and a scan with no split passes a deeper level unchanged, so every
 scan gets exactly its solo result.  Inside a one-launch fit each scan
 leaves the loop on its own and the host reads nothing; the loop of sweeps
 reads one flag per iteration.  The host reads one flag per level.
+
+Inside a caller's span (``core.timing``; the node's "engine") the engine
+opens its own: "engine.binning", one "engine.level" a level with its
+"engine.level.remap", "engine.level.seeds" and "engine.level.fit", and an
+"engine.read" at every place the host waits for the card.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import timing
 from ..core.config import PatchworkConfig
 from ..core.types import GroundResult
 from ..kernels import fit_cuda
@@ -103,52 +109,56 @@ def _level(pts, tables, num_segs, max_iter, is_level0, min_seed, flat_area,
     # ---- phase 0: split execution of the parent level (cpp:237-304) ----
     split = None
     if remap:
-        m1 = k.remap_r1(pts, trash, sp, fast)
-        pcnt = m1[:, 0]
-        safe_n = torch.clamp(pcnt, min=1.0)
-        if fast:
-            vx = m1[:, 3] - m1[:, 1] * m1[:, 1] / safe_n
-            vy = m1[:, 4] - m1[:, 2] * m1[:, 2] / safe_n
-        else:
-            cxy = torch.stack([m1[:, 1] / safe_n, m1[:, 2] / safe_n], 1)
-            v2 = k.remap_r1b(pts, cxy, trash)
-            vx, vy = v2[:, 0], v2[:, 1]
-        axis_x = (vx > vy).to(torch.float32)
-        # R2: exact per-parent median sorted[cnt // 2] (cpp:253-269)
-        pseg = pts[:, 3]
-        ps = pseg.to(torch.int64)
-        ax = torch.gather(axis_x, 1, ps)
-        vals = ax * pts[:, 0] + (1.0 - ax) * pts[:, 1]
-        k_med = torch.floor(pcnt * 0.5).to(torch.int32)
-        median = k.seg_order_stat(vals, ps.to(torch.int32).contiguous(),
-                                  (pseg < trash).contiguous(), k_med, sp)
-        split = (median, axis_x)
+        with timing.span("engine.level.remap"):
+            m1 = k.remap_r1(pts, trash, sp, fast)
+            pcnt = m1[:, 0]
+            safe_n = torch.clamp(pcnt, min=1.0)
+            if fast:
+                vx = m1[:, 3] - m1[:, 1] * m1[:, 1] / safe_n
+                vy = m1[:, 4] - m1[:, 2] * m1[:, 2] / safe_n
+            else:
+                cxy = torch.stack([m1[:, 1] / safe_n, m1[:, 2] / safe_n], 1)
+                v2 = k.remap_r1b(pts, cxy, trash)
+                vx, vy = v2[:, 0], v2[:, 1]
+            axis_x = (vx > vy).to(torch.float32)
+            # R2: exact per-parent median sorted[cnt // 2] (cpp:253-269)
+            pseg = pts[:, 3]
+            ps = pseg.to(torch.int64)
+            ax = torch.gather(axis_x, 1, ps)
+            vals = ax * pts[:, 0] + (1.0 - ax) * pts[:, 1]
+            k_med = torch.floor(pcnt * 0.5).to(torch.int32)
+            median = k.seg_order_stat(vals, ps.to(torch.int32).contiguous(),
+                                      (pseg < trash).contiguous(), k_med, sp)
+            split = (median, axis_x)
 
     # ---- phase 1b: percentile seeds (cpp:156-159), ahead of the level ----
     tz = nstats = None
     if not adaptive:
-        tau_row = tables[:, 0]
-        if split is not None:
-            pnode, tz = k.remap_nodes(tables, *split, trash)
-            k.remap_points(pts, state, pnode, trash)
-            tau_row, split = tz[:, 0], None
-        nstats = k.node_stats(pts, state, None, trash, sp)
-        seg_i = state[:, 3].to(torch.int32).contiguous()
-        k_seed = torch.floor(_f32(seed_percentile) * nstats[:, 0])
-        zstat = k.seg_order_stat(pts[:, 2].contiguous(), seg_i,
-                                 (state[:, 3] < trash).contiguous(),
-                                 k_seed.to(torch.int32), sp)
-        zth_row = zstat + _f32(th_seeds)
-        seeded = k.node_stats(pts, state, zth_row, trash, sp)
-        nstats = torch.cat([nstats[:, 0:1], seeded[:, 1:2], nstats[:, 2:]], 1)
-        tz = torch.stack([tau_row, zth_row], 1)
+        with timing.span("engine.level.seeds"):
+            tau_row = tables[:, 0]
+            if split is not None:
+                pnode, tz = k.remap_nodes(tables, *split, trash)
+                k.remap_points(pts, state, pnode, trash)
+                tau_row, split = tz[:, 0], None
+            nstats = k.node_stats(pts, state, None, trash, sp)
+            seg_i = state[:, 3].to(torch.int32).contiguous()
+            k_seed = torch.floor(_f32(seed_percentile) * nstats[:, 0])
+            zstat = k.seg_order_stat(pts[:, 2].contiguous(), seg_i,
+                                     (state[:, 3] < trash).contiguous(),
+                                     k_seed.to(torch.int32), sp)
+            zth_row = zstat + _f32(th_seeds)
+            seeded = k.node_stats(pts, state, zth_row, trash, sp)
+            nstats = torch.cat([nstats[:, 0:1], seeded[:, 1:2],
+                                nstats[:, 2:]], 1)
+            tz = torch.stack([tau_row, zth_row], 1)
 
     # ---- R3-R5, stats, early-outs, deficient, seeds, fit, split, finish --
     args = (pts, state, tables, trash, max_iter, is_level0, min_seed,
             flat_area, flat_dz, flat_minpts, fast, split, tz, nstats)
-    if fit_cuda.fit_level_fits(sp, fast, pts.device, level=True):
-        return state, k.level_core(*args)
-    return state, fit_cuda.level_sequence(k, *args)
+    with timing.span("engine.level.fit"):
+        if fit_cuda.fit_level_fits(sp, fast, pts.device, level=True):
+            return state, k.level_core(*args)
+        return state, fit_cuda.level_sequence(k, *args)
 
 
 def level(pts: torch.Tensor, tables: torch.Tensor, num_segs: int,
@@ -185,8 +195,6 @@ def _fused_levels(cfg, xyz, pa, tau_patch, zth_patch, run):
     num_p = cfg.num_patches
     cap_a = max(cfg.max_active_nodes, num_p)
     eff_levels = cfg.effective_levels
-    idx_row = torch.arange(n + n_pad, dtype=torch.float32, device=dev)
-    xyz_t = torch.nn.functional.pad(xyz.permute(0, 2, 1), (0, n_pad))
 
     def pack(seg, ground, done, trash):
         pad = torch.nn.functional.pad
@@ -223,40 +231,49 @@ def _fused_levels(cfg, xyz, pa, tau_patch, zth_patch, run):
     def padded(v, sp):
         return torch.nn.functional.pad(v, (0, sp - v.shape[1]))
 
-    # ---- level 0: node id == patch id ----
-    sp0 = sp_width(num_p + 1)
-    seg0 = torch.where(pa.in_patch, pa.patch.to(torch.float32),
-                       torch.full_like(xyz[..., 0], float(num_p)))
-    state, stats = run_level(
-        pack(seg0, torch.zeros_like(pa.in_patch), ~pa.in_patch, num_p),
-        tables(padded(tau_patch, sp0), padded(zth_patch, sp0), sp0,
-               num_p + 1, 0, torch.zeros((b, sp0), device=dev)),
-        num_p + 1, True, False)
-    ground = state[:, 0, :n] > 0.5
-    done = state[:, 1, :n] > 0.5
-    if eff_levels <= 1:
-        return ground
-
-    # ---- deeper levels: compact child-slot space, trash = cap_a ----
-    spd = sp_width(cap_a + 1)
-    trash_d = float(cap_a)
-    seg = state[:, 3, :n]
-    seg = torch.where(seg >= num_p, torch.full_like(seg, trash_d), seg)
-    split_row = padded(stats[:, 0], spd)
-    tau_row = padded(stats[:, 5], spd)
-    zth_row = padded(stats[:, 6], spd)
-    lvl = 1
-    while lvl < eff_levels and bool((split_row > 0.5).any()):
-        seg_live = torch.where(done, torch.full_like(seg, trash_d), seg)
+    # ---- level 0: node id == patch id; a level's span holds its inputs'
+    # layout and its outputs' unpacking ----
+    with timing.span("engine.level"):
+        idx_row = torch.arange(n + n_pad, dtype=torch.float32, device=dev)
+        xyz_t = torch.nn.functional.pad(xyz.permute(0, 2, 1), (0, n_pad))
+        sp0 = sp_width(num_p + 1)
+        seg0 = torch.where(pa.in_patch, pa.patch.to(torch.float32),
+                           torch.full_like(xyz[..., 0], float(num_p)))
         state, stats = run_level(
-            pack(seg_live, ground, done, cap_a),
-            tables(tau_row, zth_row, spd, cap_a + 1, lvl, split_row),
-            cap_a + 1, False, True)
-        lvl += 1
-        seg = state[:, 3, :n]
-        done = state[:, 1, :n] > 0.5
+            pack(seg0, torch.zeros_like(pa.in_patch), ~pa.in_patch, num_p),
+            tables(padded(tau_patch, sp0), padded(zth_patch, sp0), sp0,
+                   num_p + 1, 0, torch.zeros((b, sp0), device=dev)),
+            num_p + 1, True, False)
         ground = state[:, 0, :n] > 0.5
-        split_row, tau_row, zth_row = stats[:, 0], stats[:, 5], stats[:, 6]
+        done = state[:, 1, :n] > 0.5
+        if eff_levels <= 1:
+            return ground
+
+        # ---- deeper levels: compact child-slot space, trash = cap_a ----
+        spd = sp_width(cap_a + 1)
+        trash_d = float(cap_a)
+        seg = state[:, 3, :n]
+        seg = torch.where(seg >= num_p, torch.full_like(seg, trash_d), seg)
+        split_row = padded(stats[:, 0], spd)
+        tau_row = padded(stats[:, 5], spd)
+        zth_row = padded(stats[:, 6], spd)
+        more = (split_row > 0.5).any()      # a level's last output
+    lvl = 1
+    while lvl < eff_levels and timing.read(more):
+        with timing.span("engine.level"):
+            seg_live = torch.where(done, torch.full_like(seg, trash_d), seg)
+            state, stats = run_level(
+                pack(seg_live, ground, done, cap_a),
+                tables(tau_row, zth_row, spd, cap_a + 1, lvl, split_row),
+                cap_a + 1, False, True)
+            lvl += 1
+            seg = state[:, 3, :n]
+            done = state[:, 1, :n] > 0.5
+            ground = state[:, 0, :n] > 0.5
+            split_row, tau_row = stats[:, 0], stats[:, 5]
+            zth_row = stats[:, 6]
+            if lvl < eff_levels:
+                more = (split_row > 0.5).any()
     return ground
 
 
@@ -340,7 +357,7 @@ def _generic_fit(cfg, ops, ranks, xyz, ground, active, fit_pt, tau_pt,
         m1c = ranks.sum(ops.sum(torch.cat([changed[:, None],
                                            _fit_rows(g, xyz)], 1)))
         m1 = m1c[:, 1:]
-        if not bool((m1c[:, 0] > 0.0).any()):
+        if not timing.read((m1c[:, 0] > 0.0).any()):
             break
     if not resid:
         return ground, None
@@ -441,67 +458,70 @@ def _level_body(cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, num_segs,
             real, is_level0, _f32(cfg.flat_area_m2), _f32(cfg.flat_dz),
             cfg.flat_min_points, cfg.min_seed_points)
 
-    # ---- stats + seed candidates ----
-    if cfg.adaptive_seed_height:
-        tg = ops.gather(torch.stack([zth_node, tau_node], 1))
-        zth_pt, tau_pt = tg[:, 0], tg[:, 1]
-        seed = active & (z < zth_pt)
-        cnts = ranks.sum(ops.sum(torch.stack([active.to(torch.float32),
-                                              seed.to(torch.float32)], 1)))
-        cnt_i = cnts[:, 0].to(torch.int32)
-        seed_cnt = cnts[:, 1].to(torch.int32)
-    else:
-        cnt_i = ranks.sum(ops.count(active))
-        k10 = (_f32(cfg.seed_percentile) * cnt_i.to(torch.float32)).to(
-            torch.int32)
-        # across processes only fitting nodes are histogrammed (fit needs no
-        # seed count); one process takes the sort and reads no mask
-        need = early_outs(cnt_i, cnt_i)[2] if ranks.across else None
-        z_th = ranks.order_stat(seg, z, active, k10, num_segs, need,
-                                "percentile") + _f32(cfg.th_seeds)
-        tg = ops.gather(torch.stack([z_th, tau_node], 1))
-        zth_pt, tau_pt = tg[:, 0], tg[:, 1]
-        seed = active & (z < zth_pt)
-        seed_cnt = ranks.sum(ops.count(seed))
+    with timing.span("engine.level.seeds"):
+        # ---- stats + seed candidates ----
+        if cfg.adaptive_seed_height:
+            tg = ops.gather(torch.stack([zth_node, tau_node], 1))
+            zth_pt, tau_pt = tg[:, 0], tg[:, 1]
+            seed = active & (z < zth_pt)
+            cnts = ranks.sum(ops.sum(torch.stack(
+                [active.to(torch.float32), seed.to(torch.float32)], 1)))
+            cnt_i = cnts[:, 0].to(torch.int32)
+            seed_cnt = cnts[:, 1].to(torch.int32)
+        else:
+            cnt_i = ranks.sum(ops.count(active))
+            k10 = (_f32(cfg.seed_percentile) * cnt_i.to(torch.float32)).to(
+                torch.int32)
+            # across processes only fitting nodes are histogrammed (fit
+            # needs no seed count); one process takes the sort and reads no
+            # mask
+            need = early_outs(cnt_i, cnt_i)[2] if ranks.across else None
+            z_th = ranks.order_stat(seg, z, active, k10, num_segs, need,
+                                    "percentile") + _f32(cfg.th_seeds)
+            tg = ops.gather(torch.stack([z_th, tau_node], 1))
+            zth_pt, tau_pt = tg[:, 0], tg[:, 1]
+            seed = active & (z < zth_pt)
+            seed_cnt = ranks.sum(ops.count(seed))
 
-    # ---- early-outs, in reference order (cpp:111-140) ----
-    finished, label, fit_node, deficient = early_outs(cnt_i, seed_cnt)
-    t1 = ops.gather(torch.stack([finished, label, fit_node, deficient],
-                                1).to(torch.float32)) > 0.5
-    finished_pt, label_pt, fit_pt, deficient_pt = t1.unbind(1)
+        # ---- early-outs, in reference order (cpp:111-140) ----
+        finished, label, fit_node, deficient = early_outs(cnt_i, seed_cnt)
+        t1 = ops.gather(torch.stack([finished, label, fit_node, deficient],
+                                    1).to(torch.float32)) > 0.5
+        finished_pt, label_pt, fit_pt, deficient_pt = t1.unbind(1)
 
-    # ---- "min_seed_points lowest-z points" of deficient nodes (cpp:171-182),
-    # by (z, global index)
-    if bool(deficient.any()):
-        idx_f = float(ranks.first) + torch.arange(
-            n, dtype=torch.float32, device=dev).expand(b, -1)
-        chosen = torch.zeros_like(seed)
-        for _ in range(cfg.min_seed_points):
-            cand = active & deficient_pt & ~chosen
-            m = ranks.min(ops.min(z, cand))
-            m_pt = ops.gather(torch.where(torch.isfinite(m), m, _BIG))
-            is_min = cand & (z == m_pt)
-            mi = ranks.min(ops.min(idx_f, is_min))
-            mi_pt = ops.gather(torch.where(torch.isfinite(mi), mi, _BIG))
-            chosen = chosen | (is_min & (idx_f == mi_pt))
-        seed = torch.where(deficient_pt, chosen, seed)
-    seed = seed & active
+        # ---- "min_seed_points lowest-z points" of deficient nodes
+        # (cpp:171-182), by (z, global index)
+        if timing.read(deficient.any()):
+            idx_f = float(ranks.first) + torch.arange(
+                n, dtype=torch.float32, device=dev).expand(b, -1)
+            chosen = torch.zeros_like(seed)
+            for _ in range(cfg.min_seed_points):
+                cand = active & deficient_pt & ~chosen
+                m = ranks.min(ops.min(z, cand))
+                m_pt = ops.gather(torch.where(torch.isfinite(m), m, _BIG))
+                is_min = cand & (z == m_pt)
+                mi = ranks.min(ops.min(idx_f, is_min))
+                mi_pt = ops.gather(torch.where(torch.isfinite(mi), mi, _BIG))
+                chosen = chosen | (is_min & (idx_f == mi_pt))
+            seed = torch.where(deficient_pt, chosen, seed)
+        seed = seed & active
 
-    # ---- early-out labels; fitting nodes start from their seeds ----
-    ground = torch.where(active & finished_pt, label_pt, ground)
-    ground = torch.where(active & fit_pt, seed, ground)
-    done = done | (active & finished_pt)
+        # ---- early-out labels; fitting nodes start from their seeds ----
+        ground = torch.where(active & finished_pt, label_pt, ground)
+        ground = torch.where(active & fit_pt, seed, ground)
+        done = done | (active & finished_pt)
 
     # ---- iterative plane fitting (cpp:186-217), residual (cpp:219-228);
     # no residual where no node may split ----
     depth_ok = lvl < min(cfg.max_split_depth, cfg.effective_levels - 1)
-    if impl == "fused":
-        ground, _, resid = _fused_fit_resid(
-            cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
-            fit_node, num_segs, plain)
-    else:
-        ground, resid = _generic_fit(cfg, ops, ranks, xyz, ground, active,
-                                     fit_pt, tau_pt, depth_ok)
+    with timing.span("engine.level.fit"):
+        if impl == "fused":
+            ground, _, resid = _fused_fit_resid(
+                cfg, xyz, seg, tau_pt, active, fit_pt, ground, tau_node,
+                fit_node, num_segs, plain)
+        else:
+            ground, resid = _generic_fit(cfg, ops, ranks, xyz, ground,
+                                         active, fit_pt, tau_pt, depth_ok)
 
     # ---- split decision (cpp:231-235) ----
     split_thresh = _F32(cfg.th_dist) * (
@@ -578,32 +598,42 @@ def _child_remap(cfg, impl, xyz, pa, node, node_patch, done, split, plain,
 
 
 def _generic_levels(cfg, impl, xyz, pa, tau_patch, zth_patch, plain, ranks):
-    """All levels on the generic engine (engine.py:627-659); returns the
-    (B, N) ground mask.  Every loop bound is read from values reduced
-    through ``ranks``, so every process runs the same levels."""
-    b, _, n = xyz.shape
+    """All levels on the generic engine (engine.py:627-659) over the (B, N,
+    3) points; returns the (B, N) ground mask.  Every loop bound is read
+    from values reduced through ``ranks``, so every process runs the same
+    levels."""
+    b = xyz.shape[0]
     num_p = cfg.num_patches
     cap_a = max(cfg.max_active_nodes, num_p)
-    node = pa.patch.to(torch.int64)
-    done = ~pa.in_patch
-    ground = torch.zeros_like(done)
-    done, ground, split = _level_body(
-        cfg, impl, xyz, pa, tau_patch, zth_patch, 0, num_p + 1, True, node,
-        None, done, ground, plain, ranks)
-    if cfg.effective_levels > 1:
+    # level 0's span holds the points' layout, as the level path's does
+    with timing.span("engine.level"):
+        xyz = xyz.permute(0, 2, 1).contiguous()
+        node = pa.patch.to(torch.int64)
+        done = ~pa.in_patch
+        ground = torch.zeros_like(done)
+        done, ground, split = _level_body(
+            cfg, impl, xyz, pa, tau_patch, zth_patch, 0, num_p + 1, True,
+            node, None, done, ground, plain, ranks)
+        if cfg.effective_levels <= 1:
+            return ground
         split = torch.nn.functional.pad(split, (0, cap_a - num_p))
         node_patch = torch.full((b, cap_a + 1), num_p, dtype=torch.int64,
                                 device=xyz.device)
         node_patch[:, :num_p + 1] = torch.arange(num_p + 1, device=xyz.device)
-        lvl = 1
-        while lvl < cfg.effective_levels and bool(split.any()):
-            node, node_patch, done = _child_remap(
-                cfg, impl, xyz, pa, node, node_patch, done, split, plain,
-                ranks)
+        more = split.any()                  # a level's last output
+    lvl = 1
+    while lvl < cfg.effective_levels and timing.read(more):
+        with timing.span("engine.level"):
+            with timing.span("engine.level.remap"):
+                node, node_patch, done = _child_remap(
+                    cfg, impl, xyz, pa, node, node_patch, done, split, plain,
+                    ranks)
             done, ground, split = _level_body(
                 cfg, impl, xyz, pa, tau_patch, zth_patch, lvl, cap_a + 1,
                 False, node, node_patch, done, ground, plain, ranks)
             lvl += 1
+            if lvl < cfg.effective_levels:
+                more = split.any()
     return ground
 
 
@@ -644,12 +674,15 @@ def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(xyz.shape)} {xyz.dtype}")
     if valid.shape != xyz.shape[:2] or valid.dtype != torch.bool:
         raise ValueError("valid must be (B, N) bool")
-    pa = assign_patches(xyz, valid, cfg, plain=plain, ranks=ranks)
-    xyz = torch.where(pa.finite[..., None], xyz, torch.zeros_like(xyz))
-    if cfg.fast_covariance and impl == "fused":
-        xyz = _shift_to_patch_centers(cfg, xyz, pa)
-    tau_patch = _f32(cfg.th_dist) * (1.0 + _f32(cfg.tau_slope) * pa.rel_dist)
-    zth_patch = _f32(cfg.sensor_height) + _f32(cfg.seed_slope) * pa.rel_dist
+    with timing.span("engine.binning"):
+        pa = assign_patches(xyz, valid, cfg, plain=plain, ranks=ranks)
+        xyz = torch.where(pa.finite[..., None], xyz, torch.zeros_like(xyz))
+        if cfg.fast_covariance and impl == "fused":
+            xyz = _shift_to_patch_centers(cfg, xyz, pa)
+        tau_patch = _f32(cfg.th_dist) * (
+            1.0 + _f32(cfg.tau_slope) * pa.rel_dist)
+        zth_patch = (_f32(cfg.sensor_height)
+                     + _f32(cfg.seed_slope) * pa.rel_dist)
     num_p = cfg.num_patches
     cap_a = max(cfg.max_active_nodes, num_p)
     sp_max = sp_width((cap_a if cfg.effective_levels > 1 else num_p) + 1)
@@ -658,8 +691,8 @@ def filter_ground_batched(xyz: torch.Tensor, valid: torch.Tensor,
         ground = _fused_levels(cfg, xyz, pa, tau_patch.contiguous(),
                                zth_patch.contiguous(), run)
     else:
-        ground = _generic_levels(cfg, impl, xyz.permute(0, 2, 1).contiguous(),
-                                 pa, tau_patch, zth_patch, plain, ranks)
+        ground = _generic_levels(cfg, impl, xyz, pa, tau_patch, zth_patch,
+                                 plain, ranks)
     return GroundResult(ground=ground & pa.in_patch, valid=pa.finite,
                         in_zone=pa.in_zone, in_patch=pa.in_patch)
 

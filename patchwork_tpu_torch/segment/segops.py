@@ -37,6 +37,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..core import timing
+
 __all__ = ["default_impl", "IMPLS", "flatten_batch", "seg_sum", "seg_min",
            "seg_max", "SegOps", "SegmentSort", "sort_by_segment", "f32_key",
            "key_f32", "Ranks", "ORDER_STATS"]
@@ -264,7 +266,9 @@ def sort_by_segment(seg: torch.Tensor, val: torch.Tensor,
     seg = seg.to(torch.int64)
     key = f32_key(val).to(torch.int64) + 2 ** 31          # [0, 2^32)
     order = torch.argsort(seg * 2 ** 32 + key)
-    counts = torch.bincount(seg, minlength=num_segments + 1)[:num_segments]
+    with timing.span(timing.READ):    # the histogram's size: the host waits
+        counts = torch.bincount(seg, minlength=num_segments + 1)
+    counts = counts[:num_segments]
     starts = torch.cumsum(counts, 0) - counts
     return SegmentSort(val[order], starts, counts)
 
