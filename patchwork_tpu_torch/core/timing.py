@@ -25,8 +25,8 @@ import torch
 
 from .types import tensor_leaves
 
-__all__ = ["Timer", "Span", "StageTimes", "span", "current", "read", "READ",
-           "sync", "time_ms", "event_samples", "DeviceWindow",
+__all__ = ["Timer", "Span", "StageTimes", "now", "span", "current", "read",
+           "READ", "sync", "time_ms", "event_samples", "DeviceWindow",
            "device_busy_ms"]
 
 
@@ -164,6 +164,12 @@ def _cell() -> list:
         cell = [None]
         _CURRENT.set(cell)
     return cell
+
+
+def now() -> float:
+    """The spans' clock, ``time.perf_counter()``: a stamp taken here and a
+    span's ends compare (a test's fake clock reaches both)."""
+    return _clock()
 
 
 def current() -> Span | None:

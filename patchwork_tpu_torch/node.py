@@ -17,7 +17,7 @@ The parameter block mirrors the node's 8 declared parameters
 from __future__ import annotations
 
 import dataclasses
-import time
+import math
 from typing import Callable, Iterable, Iterator, List, Optional
 
 import numpy as np
@@ -91,11 +91,15 @@ class PatchworkNode:
     copy in, "h2d.copy"), "engine" (the engine call, with the engine's own
     spans under it: "engine.binning", "engine.level" and its phases, an
     "engine.read" for each wait on the card, and "engine.counts", the
-    obstacle mask and the counts), "hold" (single-scan mode: a
-    frame's engine call returned until its drain starts, while the next
-    frames come in), "d2h" (masks and counts out, waiting for the last
-    kernels) and "frame" (a frame's arrival until its result is built; in
-    single-scan mode h2d + engine + hold + d2h of that frame, exactly).
+    obstacle mask and the counts), "hold" (single-scan mode: a frame's
+    engine call returned until its drain starts: while the next frames
+    come in where the source keeps up, next to nothing where it paces the
+    node), "d2h" (masks and counts out, waiting for the last kernels) and
+    "frame" (a frame's arrival until its result is built; in single-scan
+    mode h2d + engine + hold + d2h of that frame, exactly).  "drain.paced"
+    is a span of no length for each frame that ``run`` drained before its
+    next pull because the source paces the node: its count is the frames
+    released early.
     A caller may replace ``times`` between calls or during one: spans go
     to the object in place when they open.
     """
@@ -182,41 +186,64 @@ class PatchworkNode:
         """Stream scans through the engine.
 
         Single-scan mode keeps up to ``pipeline_depth`` scans enqueued
-        before pulling the oldest one's results to the host (the reference
-        processes strictly sequentially per DDS message); a frame's "hold"
-        span covers that wait.  A frame arrives when it is pulled from
-        ``scans``.
+        before pulling the oldest one's results to the host, so that a
+        frame's last kernels overlap the next frame's host work.  A frame
+        arrives when it is pulled from ``scans``.  Before each pull, if
+        the last pull waited longer than the last drain took (the source
+        paces the node, as a sensor does), every frame in flight is
+        drained first: holding it would only delay its result to the next
+        arrival (the reference node publishes inside each message's own
+        callback).  The rule reads only the clock, so a source whose pull
+        works longer than a drain takes, as a file's read or a bag's
+        decode does, is paced too: its frames reach the sink before the
+        next read and give up the overlap (the wait for the card's tail,
+        a fraction of a millisecond at most).  It guesses the next pull
+        from the last one: a frame that a paced source hands over at once
+        (one that came late) is held until the next arrival.  A frame's
+        "hold" span runs from its engine call's return to its drain, and
+        each frame drained early adds a "drain.paced" span.  Sinks run on
+        the caller's thread.
         """
         if self.batch_size > 1:
             return self._run_batched(scans, sinks or [], limit)
         sinks = sinks or []
         results: List[FrameResult] = []
         inflight: List[tuple] = []  # (index, pts, frame, outputs, hold)
+        drain_s = math.inf          # the last drain's seconds; none yet
 
-        def drain_one():
+        def drain_one(paced: bool = False):
+            nonlocal drain_s
             idx, pts, frame, out, hold = inflight.pop(0)
             hold.close()
+            if paced:
+                self.times.open("drain.paced", (idx,), hold.end).close(
+                    hold.end)
             res = self._results([(idx, pts, frame)], out, hold.end)[0]
+            drain_s = frame.end - hold.end
             results.append(res)
             for sink in sinks:
                 sink(pts, res)
 
+        asked = timing.now()
         for i, pts in enumerate(scans):
-            arrival = time.perf_counter()
+            arrival = timing.now()
             if limit is not None and i >= limit:
                 break
-            if len(pts) < self.params.min_points:
-                continue
             try:
-                frame = self.times.open("frame", (i,), arrival)
-                out, engine = self._enqueue((i,), [pts], 1, arrival)
-                hold = self.times.open("hold", (i,), engine.end)
-                inflight.append((i, pts, frame, out, hold))
-                while len(inflight) >= pipeline_depth:
-                    drain_one()
+                if len(pts) >= self.params.min_points:
+                    frame = self.times.open("frame", (i,), arrival)
+                    out, engine = self._enqueue((i,), [pts], 1, arrival)
+                    hold = self.times.open("hold", (i,), engine.end)
+                    inflight.append((i, pts, frame, out, hold))
+                    while len(inflight) >= pipeline_depth:
+                        drain_one()
+                if arrival - asked > drain_s:   # the source paces the node
+                    while inflight:
+                        drain_one(paced=True)
             except Exception as e:  # per-frame resilience (reference
                 # node catches and logs per callback, cpp:105-107)
                 print(f"Error processing frame {i}: {type(e).__name__}: {e}")
+            asked = timing.now()
         while inflight:
             drain_one()
         return results
@@ -241,7 +268,7 @@ class PatchworkNode:
             buf.clear()
 
         for i, pts in enumerate(scans):
-            arrival = time.perf_counter()
+            arrival = timing.now()
             if limit is not None and i >= limit:
                 break
             if len(pts) < self.params.min_points:

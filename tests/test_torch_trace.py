@@ -243,6 +243,104 @@ def test_batched_latency_is_each_frames_own():
         assert lat[a] - lat[b] > 0.04
 
 
+def _paced(scans, asked, fast=0, period=0.04):
+    """``scans`` one by one, the first ``fast`` at once and each later one
+    ``period`` s after it is asked for, as a sensor hands them over;
+    ``asked`` gets the moment of each pull."""
+    for k, pts in enumerate(scans):
+        asked.append(time.perf_counter())
+        if k >= fast:
+            time.sleep(period)
+        yield pts
+
+
+def _most_in_flight(spans):
+    """The most frames in flight at once, each from its engine call's end
+    to its drain (its hold's end), in the order the spans closed."""
+    most = now = 0
+    for s in spans:
+        now += (s.name == "engine") - (s.name == "hold")
+        most = max(most, now)
+    return most
+
+
+def test_a_paced_source_gets_each_frame_before_the_next_pull():
+    scans = _scans(6)
+    n = _node()
+    asked, sunk = [], {}
+    res = n.run(_paced(scans, asked),
+                [lambda pts, r: sunk.setdefault(r.index, time.perf_counter())],
+                pipeline_depth=2)
+    assert [r.index for r in res] == list(range(6))
+    spans = n.times.spans
+    hold = _by_frame(spans, "hold")
+    # the first frame waits for the second, as no pull before it waited;
+    # every later one reaches the sink before the next scan is asked for
+    assert sunk[0] > asked[1]
+    for k in range(1, 5):
+        assert sunk[k] < asked[k + 1], k
+    for k in range(1, 6):
+        assert hold[k].seconds < 5e-3, k
+    paced = [s for s in spans if s.name == "drain.paced"]
+    assert sorted(_by_frame(spans, "drain.paced")) == list(range(1, 6))
+    assert all(s.seconds == 0.0 and s.parent is None for s in paced)
+    assert n.times.summary()["drain.paced"]["count"] == 5
+    assert _most_in_flight(spans) == 2
+    # the same results as over a list and one scan at a time, bit for bit
+    listed = _node().run(scans, pipeline_depth=2)
+    alone = _node()
+    for r, pts in zip(res, scans):
+        for other in (listed[r.index], alone.process(pts, r.index)):
+            assert other.index == r.index
+            np.testing.assert_array_equal(other.ground_mask, r.ground_mask)
+            np.testing.assert_array_equal(other.valid_mask, r.valid_mask)
+            assert (other.num_ground, other.num_obstacles) == (
+                r.num_ground, r.num_obstacles)
+
+
+def test_a_source_that_turns_paced_switches_regimes(monkeypatch):
+    # the node's clock stands still but for the source's waits: the first
+    # four pulls take no time, each later one 40 ms, as a sensor's do
+    now = [0.0]
+    monkeypatch.setattr(timing, "_clock", lambda: now[0])
+    events = []
+
+    def source():
+        for k, pts in enumerate(_scans(8)):
+            events.append(("pull", k))
+            if k >= 4:
+                now[0] += 0.04
+            yield pts
+
+    n = _node()
+    res = n.run(source(), [lambda pts, r: events.append(("sink", r.index))],
+                pipeline_depth=3)
+    assert [r.index for r in res] == list(range(8))
+    spans = n.times.spans
+    closed = {(s.name, f): k for k, s in enumerate(spans) for f in s.frames}
+    # fast pulls: three in flight, each frame held past the next two
+    # frames' engine calls
+    for k in range(3):
+        assert closed["hold", k] > closed["engine", k + 2], k
+    assert _most_in_flight(spans) == 3
+    # the frames pulled and not yet at a sink, as each scan is asked for:
+    # two held while pulls are fast; the first pull that waits (scan 4)
+    # releases what is in flight, and from then on every frame reaches its
+    # sink before the next pull
+    held, sunk = [], 0
+    for kind, k in events:
+        if kind == "sink":
+            sunk += 1
+        else:
+            held.append(k - sunk)
+    assert held == [0, 1, 2, 2, 2, 0, 0, 0]
+    assert sorted(_by_frame(spans, "drain.paced")) == [3, 4, 5, 6, 7]
+    # only the two frames in flight when the source turned wait out a pull
+    hold = _by_frame(spans, "hold")
+    assert [hold[k].seconds for k in range(8)] == pytest.approx(
+        [0, 0, 0.04, 0.04, 0, 0, 0, 0])
+
+
 def test_spans_follow_a_swap_of_the_nodes_times():
     n = _node()
     old = n.times
