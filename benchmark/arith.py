@@ -6,7 +6,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-__all__ = ["PEAKS", "rate", "percentile", "median", "merge_intervals",
+__all__ = ["PEAKS", "rate", "percentile", "merge_intervals",
            "busy_seconds", "idle_gaps", "idle_pct", "least_seconds",
            "roofline_pct"]
 
@@ -32,10 +32,6 @@ def percentile(values: Sequence[float], q: float) -> float:
     ordered = sorted(values)
     rank = max(math.ceil(q / 100.0 * len(ordered)), 1)
     return ordered[rank - 1]
-
-
-def median(values: Sequence[float]) -> float:
-    return percentile(values, 50.0)
 
 
 def merge_intervals(intervals: Iterable[Tuple[float, float]]

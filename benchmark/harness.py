@@ -213,8 +213,10 @@ def run_cell(bench: Manifest, workload: str, seed: int, seconds: float,
             "the node does not run the configuration the file states: "
             f"{dataclasses.asdict(node.config)} != {values}")
     depth = mix.get("pipeline_depth", 2)
+    t_pool = time.perf_counter()
     pool = traffic.make_pool(bench.scene(mix["scene"]), conf["sensor"], mix,
                              seed)
+    t_warm = time.perf_counter()
     if max(len(s) for s in pool) > conf["capacity"]:
         raise ValueError("a scan holds more points than the node's capacity")
 
@@ -229,10 +231,6 @@ def run_cell(bench: Manifest, workload: str, seed: int, seconds: float,
         node.run(pool[:mix["batch_size"]], pipeline_depth=depth)
         warm.stop()
         tracer = DeviceTrace(device)
-        for attr, span in (("_pad", "node.pad_copy_in"),
-                           ("_step", "node.engine"),
-                           ("_results", "node.copy_out")):
-            setattr(node, attr, _spanned(getattr(node, attr), span))
     node.times = type(node.times)()
     fit_cuda.reset_launches()
 
@@ -253,6 +251,8 @@ def run_cell(bench: Manifest, workload: str, seed: int, seconds: float,
 
     sink = Sink(mix["check_frames"], seed, on_result)
     sinks = [_spanned(sink, "bench.sink")] if trace else [sink]
+    wait = (_spanned(traffic.wait_until, "bench.wait_due") if trace
+            else traffic.wait_until)
     t0 = time.perf_counter()
     setup_s = t0 - t_start
     t_end = t0 + seconds
@@ -261,10 +261,9 @@ def run_cell(bench: Manifest, workload: str, seed: int, seconds: float,
         due = None
     elif mix["arrival"] == "open":
         hz = conf["sensor"]["rate_hz"] * mix.get("realtime_factor", 1.0)
-        sleep = _spanned(time.sleep, "bench.wait_due") if trace else time.sleep
         source = traffic.OpenLoop(pool, t0, 1.0 / hz,
                                   math.ceil(seconds * hz - 1e-9), on_hand,
-                                  sleep)
+                                  wait)
         due = source.due
     else:
         raise ValueError(f"unknown arrival {mix['arrival']!r}")
@@ -285,7 +284,9 @@ def run_cell(bench: Manifest, workload: str, seed: int, seconds: float,
     attempted = len(source.handed) if due is None else len(due)
     log(f"window {seconds} s (closed {t_close - t_end:+.3f} s after its "
         f"end): {attempted} frames attempted, {len(sink.arrived)} results, "
-        f"{engine_calls} engine calls; set-up {setup_s:.3f} s")
+        f"{engine_calls} engine calls; set-up {setup_s:.3f} s: "
+        f"{t_pool - t_start:.3f} s to the pool, the pool "
+        f"{t_warm - t_pool:.3f} s, the node's warm-up {t0 - t_warm:.3f} s")
     if due is None and seconds >= 4:
         q = np.linspace(t0, t_end, 5)
         log("scans/s by quarter of the window: " + ", ".join(
@@ -297,6 +298,13 @@ def run_cell(bench: Manifest, workload: str, seed: int, seconds: float,
         late = [h - d for h, d in zip(source.handed, due)]
         log(f"generator lateness ms: median {1e3 * np.median(late):.3f}, "
             f"max {1e3 * max(late):.3f}")
+    if due is not None and len(due) >= 10:
+        lat = [1e3 * (sink.arrived.get(k, math.inf) - d)
+               for k, d in enumerate(due)]
+        log(f"latency ms: p50 {np.percentile(lat, 50):.3f}, p95 "
+            f"{np.percentile(lat, 95):.3f}; p50 by tenth of the window: "
+            + ", ".join(f"{np.median(part):.3f}"
+                        for part in np.array_split(lat, 10)))
 
     summary = tracer.summary() if tracer is not None else None
     traced_calls, work_of = 0, None

@@ -77,7 +77,6 @@ def test_latency_readers_count_a_missing_frame_as_late():
     assert reader("latency_p95_ms")(run) is None          # frame 3 missing
     run.arrived[3] = 0.35
     assert reader("latency_p95_ms")(run) == pytest.approx(110.0)
-    assert reader("node_result_ms.live")(run) == pytest.approx(100.0)
     assert reader("latency_p50_ms")(record()) is None
 
 

@@ -13,7 +13,7 @@ from benchmark.manifest import Manifest
 from .test_harness_arith import reader, record
 from .tiny import tiny_root
 
-LIVE = ("node_hold_ms.live", "node_frame_ms.live")
+LIVE = ("node_hold_ms.live",)
 OFFLINE = ("node_pad_ms.offline", "binning_host_ms.offline",
            "engine_read_wait_ms.offline", "engine_host_reads.offline")
 
@@ -38,7 +38,6 @@ def test_span_readers():
     live = record(arrival="open", due=[], stages=_stages(20),
                   engine_calls=20)
     assert reader("node_hold_ms.live")(live) == 99.5
-    assert reader("node_frame_ms.live")(live) == 106.0
     # the wrong arrival, a program without the span, no engine call
     bare = {"h2d": {"p50_ms": 1.0, "count": 4, "total_ms": 4.0},
             "engine": {"p50_ms": 1.0, "count": 4, "total_ms": 4.0}}

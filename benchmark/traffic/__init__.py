@@ -18,7 +18,9 @@ A mix file (``mixes/<name>.json``) gives its parameters:
 
 Every seed gets the same point counts (evenly spaced over the
 configuration's range) in its own order, so seeds change the scenes and
-not the amount of work.
+not the amount of work.  An open loop hands each scan over on time from
+an awake process: it sleeps until ``MARGIN_S`` before the due time and
+spins on the clock for the rest.
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-__all__ = ["pool_sizes", "scan_seed", "make_pool", "ClosedLoop", "OpenLoop"]
+__all__ = ["MARGIN_S", "pool_sizes", "scan_seed", "make_pool", "wait_until",
+           "ClosedLoop", "OpenLoop"]
+
+# An open loop's spin before each due time: longer than the sleep's own
+# overshoot, so that a scan is handed over on time.
+MARGIN_S = 0.002
 
 
 def pool_sizes(lo: int, hi: int, pool: int, seed: int) -> np.ndarray:
@@ -50,6 +57,16 @@ def make_pool(scene, sensor: dict, mix: dict, seed: int) -> List[np.ndarray]:
     args = mix.get("scene_args", {})
     return [scene.scan(int(n), scan_seed(seed, p, k), sensor, **args)
             for k, n in enumerate(sizes)]
+
+
+def wait_until(due: float) -> None:
+    """Wait until ``due`` (``time.perf_counter()`` seconds): sleep until
+    ``MARGIN_S`` before it, then spin on the clock."""
+    left = due - time.perf_counter() - MARGIN_S
+    if left > 0:
+        time.sleep(left)
+    while time.perf_counter() < due:
+        pass
 
 
 class ClosedLoop:
@@ -78,22 +95,22 @@ class OpenLoop:
     """``frames`` scans of ``pool``, cycled; scan k is due at
     ``t0 + k * period`` and handed over no earlier.  ``due[k]`` and
     ``handed[k]`` are stamped; ``handed[k] - due[k]`` is how late the
-    generator ran.  ``sleep`` waits for a due time."""
+    generator ran.  ``wait(due)`` waits for a due time that has not come
+    (``wait_until``, by default)."""
 
     def __init__(self, pool: List[np.ndarray], t0: float, period: float,
                  frames: int, on_hand: Optional[Callable[[int], None]] = None,
-                 sleep: Callable[[float], None] = time.sleep):
+                 wait: Callable[[float], None] = wait_until):
         self.pool = pool
         self.due = [t0 + k * period for k in range(frames)]
         self.on_hand = on_hand
-        self.sleep = sleep
+        self.wait = wait
         self.handed: List[float] = []
 
     def __iter__(self):
         for k, due in enumerate(self.due):
-            wait = due - time.perf_counter()
-            if wait > 0:
-                self.sleep(wait)
+            if due > time.perf_counter():
+                self.wait(due)
             if self.on_hand is not None:
                 self.on_hand(k)
             self.handed.append(time.perf_counter())
